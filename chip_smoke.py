@@ -4,23 +4,33 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (one line each):
   1. the device: torch's name for it and nvidia-smi's name and power limit;
-  2. build both CUDA kernels from pbrt_v3_iile_tpu_torch/csrc;
+  2. build both CUDA kernels from pbrt_v3_iile_tpu_torch/csrc, one nvcc
+     each, in parallel, printing ptxas's registers, shared memory and
+     spills per kernel;
   3. build the device scene of scenes/atrium.pbrt on the GPU;
   4. the BVH kernel (K2) against its plain version, the vectorized BVH
      walker, on two 65,536-ray waves of the 512^2 film (primary rays and
      one diffuse bounce from their hits), closest-hit and any-hit;
-  5. the cluster kernel (K1) against its plain version, and the whole
-     cluster traversal against K2, on the same waves; then once with
-     cluster_maxc=8 so that the overflow groups go through K2;
+  5. the cluster kernel (K1: cull, candidate order and traversal in one
+     kernel) against its plain version (the torch cull, candidate tables
+     and a dense evaluation) on the same waves: n_cand per group, prim on
+     every ray and t bit for bit, any-hit validity; the whole cluster
+     traversal against K2; then with 8-candidate lists: K1 against its
+     plain version, and the whole traversal with cluster_maxc=8 so that
+     the overflow groups go through K2;
   6. the main path through render(): atrium 128^2, 64 spp, seed 3, the
      default CUDA config (clusters), plain and compacted, each held
      against the reference C++ renderer's image with the atrium-path
      tolerances of tests/test_oracle_parity.py; then one pass with
-     cluster_maxc=8 (the forced overflow path).  Kernel launch counts are
+     cluster_maxc=8 (the forced overflow path).  Kernel launch counts and
+     the calls of the torch cull (per_ray_cull, which must make none) are
      read around exactly this phase;
-  7. timing (printed, no threshold): each kernel and its plain version at
-     the main-path shapes, and the atrium 512^2 depth-5 compacted pass as
-     bench.py configures it, in Mrays/s counted as path.py counts rays.
+  7. timing (printed, no threshold): each kernel, its plain version and
+     the torch candidate tables K1 no longer needs, at the main-path
+     shapes, with each kernel's bound computed from this run's inputs;
+     the atrium 512^2 depth-5 compacted pass as bench.py configures it,
+     in Mrays/s counted as path.py counts rays, its kernel launches per
+     pass, and one profiled pass: device-busy ms and idle share.
 Prints the kernel JSON line, the device line, and as its last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero with no result.
 Long output (the profiler table) goes to chiprun_out/.
@@ -32,6 +42,7 @@ import json
 import os
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -48,6 +59,20 @@ B_ATOL = 1e-4        # barycentrics where the prims agree
 XALG_AGREE = 0.995   # cluster (Pluecker) vs BVH (Moller) traversal: the
                      # two triangle tests differ on rays grazing shared edges
 ORACLE = ("atrium_ref_path96_128.npy", 0.015, (0.02, 0.02, 0.02), 0.07)
+
+# the H100 SXM's published peaks (700 W): fp32 outside the tensor cores,
+# and HBM bandwidth
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# fp32 operations per test, counted from the CUDA sources:
+CULL_OPS = 28      # K1 slab test: per axis 2 sub, 2 mul, min, max, max, min;
+                   # tf scale; 3 compares
+PLUCKER_OPS = 50   # K1 triangle: 3 x (6 mul + 5 add), 4 mul + 3 add, 2 add,
+                   # 3 sign products and compares, |s| and its compare
+                   # (the divide only where the signs agree)
+NODE_OPS = 26      # K2 node: 6 sub, 6 mul, 10 min/max, 1 mul, 3 compares
+MOLLER_OPS = 53    # K2 triangle: two crosses (18), four dots (20), 3 subs,
+                   # 3 scalings, |det| test (2), the divide, 5 compares + 1 add
 
 
 def fail(msg):
@@ -75,6 +100,13 @@ def cuda_ms(fn, reps):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def bound(ops, nbytes):
+    """Least time the card could take (ms) and which term sets it."""
+    t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def compare_hits(name, ta, pa, tb, pb, b1a=None, b2a=None, b1b=None, b2b=None,
@@ -143,7 +175,7 @@ def main():
     line("device", torch_name=kind, count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
-    from pbrt_v3_iile_tpu.scene import api as apilib
+    from pbrt_v3_iile_tpu_torch.scene import api as apilib
     from pbrt_v3_iile_tpu_torch import _build
     from pbrt_v3_iile_tpu_torch.integrators import render as renderlib
     from pbrt_v3_iile_tpu_torch.ops import clusters as cllib
@@ -156,8 +188,9 @@ def main():
 
     # ---- 2. build the kernels ----
     t0 = time.time()
-    for name in ("bvh_traverse", "cluster_traverse"):
-        _build.load(name, verbose=True)
+    with ThreadPoolExecutor(2) as ex:   # one nvcc per source, together
+        list(ex.map(lambda n: _build.load(n, verbose=True),
+                    ("bvh_traverse", "cluster_traverse")))
     line("build", seconds=time.time() - t0, dir=_build.BUILD_DIR)
 
     # ---- 3. the device scene ----
@@ -215,37 +248,56 @@ def main():
 
     # ---- 5. K1 vs its plain version, and vs K2 ----
     cp = scene.clusters
+    maxc = K1.maxc_for(cp.feat.shape[0])
     k1_err = 0.0
-    tables = {}
+    sorted_waves = {}
     for wname, (o, d, tm) in waves.items():
-        key = cllib.sort_key6(o, d, scene.world_min,
-                                              scene.world_max)
+        key = cllib.sort_key6(o, d, scene.world_min, scene.world_max)
         key = torch.where(tm > 0, key, 0x7FFFFFFF)
         perm = torch.sort(key, stable=True).indices
-        os_, ds_, ts_ = o[perm].contiguous(), d[perm].contiguous(), tm[perm].contiguous()
-        cand, cpk, ctn, ncand, n_cand = K1.candidate_tables(cp, os_, ds_, ts_)
-        rays = K1.ray_table(os_, ds_)
-        tables[wname] = (cand, cpk, ctn, ncand, rays, ts_)
-        line(f"K1_tables_{wname}", groups=int(cand.shape[0]),
+        os_, ds_, ts_ = (x[perm].contiguous() for x in (o, d, tm))
+        sorted_waves[wname] = (os_, ds_, ts_)
+        t, prim, n_cand = K1.cluster_traverse_cuda(cp, os_, ds_, ts_, maxc)
+        tp, pp, n_plain = K1.cluster_traverse_plain(cp, os_, ds_, ts_, maxc)
+        torch.cuda.synchronize()
+        # the kernel does the plain version's rounded operations in the
+        # same order (--fmad=false): everything must agree bit for bit
+        same_n = bool(torch.equal(n_cand, n_plain))
+        prim_agree = float((prim == pp).float().mean())
+        t_abs = float((t - tp).abs().max())
+        line(f"K1_vs_plain_{wname}", groups=int(n_cand.shape[0]),
              mean_candidates=float(n_cand.float().mean()),
              max_candidates=int(n_cand.max()),
-             overflow_groups=int((n_cand > cand.shape[1]).sum()))
-        t, prim = K1.traverse_groups_cuda(cp.feat, cand, cpk, ctn, ncand, rays, ts_)
-        tp, pp = K1.traverse_groups_plain(cp.feat, cand, cpk, ctn, ncand, rays, ts_)
+             overflow_groups=int((n_cand > maxc).sum()),
+             n_cand_identical=same_n, prim_agree=prim_agree,
+             t_identical=bool(torch.equal(t, tp)), t_max_abs=t_abs,
+             hits=int((prim >= 0).sum()))
+        check(same_n, f"K1 {wname}: n_cand differs from the plain version")
+        check(prim_agree == 1.0, f"K1 {wname}: prim agreement {prim_agree}")
+        check(torch.equal(t, tp), f"K1 {wname}: t differs by up to {t_abs}")
+        k1_err = max(k1_err, t_abs)
+        _, pa, _ = K1.cluster_traverse_cuda(cp, os_, ds_, ts_, maxc,
+                                            any_hit=True)
         torch.cuda.synchronize()
-        r = compare_hits(f"K1_vs_plain_{wname}", t, prim, tp, pp)
-        k1_err = max(k1_err, r["t_max_abs"])
-        _, pa = K1.traverse_groups_cuda(cp.feat, cand, cpk, ctn, ncand, rays,
-                                        ts_, any_hit=True)
-        va, vb = (pa >= 0).cpu().numpy(), (pp >= 0).cpu().numpy()
-        frac = float((va == vb).mean())
-        line(f"K1_anyhit_vs_plain_{wname}", agree=frac)
-        check(frac >= PRIM_AGREE, f"K1 any-hit {wname}: agreement {frac}")
+        same_valid = bool(torch.equal(pa >= 0, pp >= 0))
+        line(f"K1_anyhit_vs_plain_{wname}", validity_identical=same_valid,
+             occluded=int((pa >= 0).sum()))
+        check(same_valid, f"K1 any-hit {wname}: validity differs")
         # whole cluster traversal (K1 + overflow through K2) vs K2 alone
         h1 = isect.intersect(scene, o, d, tm, accel="clusters")
         h2 = isect.intersect(scene, o, d, tm, accel="bvh")
         compare_hits(f"clusters_vs_K2_{wname}", h1.t, h1.prim, h2.t, h2.prim,
                      agree_min=XALG_AGREE)
+    # K1 with 8-candidate lists: the overflow groups are left as misses
+    os_, ds_, ts_ = sorted_waves["bounce"]
+    t, prim, n_cand = K1.cluster_traverse_cuda(cp, os_, ds_, ts_, 8)
+    tp, pp, n_plain = K1.cluster_traverse_plain(cp, os_, ds_, ts_, 8)
+    torch.cuda.synchronize()
+    same8 = bool(torch.equal(n_cand, n_plain) and torch.equal(prim, pp)
+                 and torch.equal(t, tp))
+    line("K1_vs_plain_bounce_maxc8", identical=same8,
+         overflow_groups=int((n_cand > 8).sum()))
+    check(same8, "K1 with maxc=8 differs from its plain version")
     n2 = K2.LAUNCHES
     o, d, tm = waves["bounce"]
     h8 = isect.intersect(scene, o, d, tm, accel="clusters", cluster_maxc=8)
@@ -259,6 +311,7 @@ def main():
     sd128.film.x_resolution = sd128.film.y_resolution = 128
     K1.LAUNCHES = 0
     K2.LAUNCHES = 0
+    cllib.CALLS = 0
     t0 = time.time()
     for compact in (False, True):
         img, st = renderlib.render(sd128, spp=64, seed=3, compact=compact,
@@ -270,25 +323,63 @@ def main():
     check(np.isfinite(img8).all() and img8.mean() > 0, "maxc=8 pass image")
     torch.cuda.synchronize()
     launches = {"cluster_traverse": K1.LAUNCHES, "bvh_traverse": K2.LAUNCHES}
-    line("main_path", seconds=time.time() - t0, launches=launches)
+    cull_calls = cllib.CALLS
+    line("main_path", seconds=time.time() - t0, launches=launches,
+         per_ray_cull_calls=cull_calls)
     check(launches["cluster_traverse"] > 0, "K1 never launched on the main path")
     check(launches["bvh_traverse"] > 0, "K2 never launched on the main path")
+    check(cull_calls == 0, f"the main path called the torch cull {cull_calls} times")
 
-    # ---- 7. timing ----
-    cand, cpk, ctn, ncand, rays, ts_ = tables["bounce"]
+    # ---- 7. timing, bounds ----
+    os_, ds_, ts_ = sorted_waves["bounce"]
     o, d, tm = waves["bounce"]
     l1, l2 = K1.LAUNCHES, K2.LAUNCHES
     ms = {
-        "cluster_traverse": cuda_ms(lambda: K1.traverse_groups_cuda(
-            cp.feat, cand, cpk, ctn, ncand, rays, ts_), 20),
-        "cluster_plain": cuda_ms(lambda: K1.traverse_groups_plain(
-            cp.feat, cand, cpk, ctn, ncand, rays, ts_), 2),
+        "cluster_traverse": cuda_ms(lambda: K1.cluster_traverse_cuda(
+            cp, os_, ds_, ts_, maxc), 20),
+        "cluster_traverse_anyhit": cuda_ms(lambda: K1.cluster_traverse_cuda(
+            cp, os_, ds_, ts_, maxc, any_hit=True), 20),
+        "cluster_plain": cuda_ms(lambda: K1.cluster_traverse_plain(
+            cp, os_, ds_, ts_, maxc), 2),
+        "candidate_tables": cuda_ms(lambda: K1.candidate_tables(
+            cp, os_, ds_, ts_, maxc), 5),
         "bvh_traverse": cuda_ms(lambda: K2.bvh_traverse_cuda(
             scene.nodes_packed, scene.tris_packed, o, d, tm), 20),
         "bvh_plain": cuda_ms(lambda: isect.intersect_bvh(scene, o, d, tm), 2),
     }
-    K1.LAUNCHES, K2.LAUNCHES = l1, l2  # timing launches are not main-path ones
     line("kernel_ms_bounce_wave_65536", **ms)
+
+    # K1's bound: the slab tests of every live group against every box, and
+    # the Pluecker tests of the candidates the exact break cannot skip (the
+    # first, and those whose tnear is below the group's largest final t)
+    t_k, _, _ = K1.cluster_traverse_cuda(cp, os_, ds_, ts_, maxc)
+    cand, cpk, ctn, ncand, n_cand = K1.candidate_tables(cp, os_, ds_, ts_, maxc)
+    G, K = K1.G_DEFAULT, cp.feat.shape[0]
+    live = (ts_ > 0).reshape(-1, G)
+    gmax = torch.where(live, t_k.reshape(-1, G), -3e38).amax(1)
+    slot = torch.arange(cand.shape[1], device=dev)[None, :]
+    need = ((slot < ncand[:, None]) & (n_cand <= maxc)[:, None]
+            & ((ctn < gmax[:, None]) | (slot == 0)))
+    k1_tris = int(((cpk & 255) * need).sum())
+    k1_slabs = int(live.any(1).sum()) * G * K
+    k1_ops = k1_slabs * CULL_OPS + k1_tris * G * PLUCKER_OPS
+    k1_bytes = (int(torch.unique(cand[need]).numel()) * 22 * K1.C * 4  # live rows
+                + K * (24 + 8) + ts_.shape[0] * (28 + 8) + cand.shape[0] * 4)
+    k1_bound, k1_by = bound(k1_ops, k1_bytes)
+    line("K1_bound_bounce", slab_tests=k1_slabs,
+         candidates_needed=int(need.sum()), candidates_listed=int(ncand.sum()),
+         triangles_needed=k1_tris, gflop=k1_ops / 1e9, mbytes=k1_bytes / 1e6,
+         bound_ms=k1_bound, bound_by=k1_by)
+    work = {}
+    isect.intersect_bvh(scene, o, d, tm, work=work)
+    k2_ops = work["nodes"] * NODE_OPS + work["tris"] * MOLLER_OPS
+    k2_bytes = (scene.nodes_packed.nbytes + scene.tris_packed.nbytes
+                + o.shape[0] * (28 + 16))
+    k2_bound, k2_by = bound(k2_ops, k2_bytes)
+    line("K2_bound_bounce", node_visits=work["nodes"], triangle_tests=work["tris"],
+         gflop=k2_ops / 1e9, mbytes=k2_bytes / 1e6, bound_ms=k2_bound,
+         bound_by=k2_by)
+    K1.LAUNCHES, K2.LAUNCHES = l1, l2  # timing launches are not main-path ones
 
     cfg = renderlib.make_integrator_config(sd, device=dev)
     cfg = cfg.replace(max_depth=5, compact_schedule=renderlib.COMPACT_SCHEDULE)
@@ -297,7 +388,9 @@ def main():
     L, _, aux = run(scene, cam, key, 0)
     float(L.sum())                                     # warmup pass
     times, rays_n = [], []
-    for p in range(1, 5):
+    l1, l2 = K1.LAUNCHES, K2.LAUNCHES
+    n_pass = 4
+    for p in range(1, n_pass + 1):
         torch.cuda.synchronize()
         t0 = time.time()
         L, _, aux = run(scene, cam, key, p)
@@ -305,36 +398,54 @@ def main():
         times.append(time.time() - t0)
         rays_n.append(int(aux["rays"]))
         check(np.isfinite(checksum), "non-finite 512^2 pass")
+    per_pass = {"cluster_traverse": (K1.LAUNCHES - l1) / n_pass,
+                "bvh_traverse": (K2.LAUNCHES - l2) / n_pass}
     mrays = [r / t / 1e6 for r, t in zip(rays_n, times)]
     line("atrium512_depth5_compact", pass_seconds=times, rays=rays_n,
          mrays_per_s=mrays, mrays_per_s_total=sum(rays_n) / sum(times) / 1e6,
-         power=smi)
+         launches_per_pass=per_pass, power=smi)
 
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        L, _, _ = run(scene, cam, key, 5)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        L, _, _ = run(scene, cam, key, n_pass + 1)
         float(L.sum())
+        prof_s = time.time() - t0
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
     with open(os.path.join(OUT_DIR, "profile_atrium512.txt"), "w") as f:
         f.write(table)
-    evs = prof.key_averages()
-    dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in evs)
-    top = sorted(evs, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:8]
-    line("profile_atrium512_pass", device_ms=dev_us / 1e3,
-         top=[(e.key[:60], round(getattr(e, "self_device_time_total", 0.0) / 1e3, 3))
-              for e in top])
+    # device-busy time: the rows of device events (kernels, copies) only;
+    # an operator's row repeats the time of the kernels it launched
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in evs)
+    check(dev_us > 0, "the profiler saw no device time")
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
+    median_s = float(np.median(times))
+    line("profile_atrium512_pass", device_busy_ms=dev_us / 1e3,
+         device_events=sum(e.count for e in evs),
+         profiled_pass_ms=prof_s * 1e3, median_pass_ms=median_s * 1e3,
+         idle_share=1.0 - dev_us / 1e6 / median_s,
+         idle_share_profiled=1.0 - dev_us / 1e6 / prof_s,
+         top=[(e.key[:60], e.count, round(e.self_device_time_total / 1e3, 3))
+              for e in top], power=smi)
 
     kernels = [
         dict(name="cluster_traverse", route="cuda",
              source="pbrt_v3_iile_tpu_torch/csrc/cluster_traverse.cu",
              replaces="pbrt_v3_iile_tpu/ops/clusters_pallas.py:365",
              launches=launches["cluster_traverse"], max_abs_err=k1_err,
-             ms=ms["cluster_traverse"], plain_ms=ms["cluster_plain"]),
+             ms=ms["cluster_traverse"], plain_ms=ms["cluster_plain"],
+             bound_ms=k1_bound, bound_by=k1_by, library_ms=None,
+             launches_per_pass=per_pass["cluster_traverse"]),
         dict(name="bvh_traverse", route="cuda",
              source="pbrt_v3_iile_tpu_torch/csrc/bvh_traverse.cu",
              replaces="pbrt_v3_iile_tpu/ops/intersect_pallas.py:301",
              launches=launches["bvh_traverse"], max_abs_err=k2_err,
-             ms=ms["bvh_traverse"], plain_ms=ms["bvh_plain"]),
+             ms=ms["bvh_traverse"], plain_ms=ms["bvh_plain"],
+             bound_ms=k2_bound, bound_by=k2_by, library_ms=None,
+             launches_per_pass=per_pass["bvh_traverse"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -7,8 +7,10 @@ first CUDA call with
          -shared -Xcompiler -fPIC
 
 into ``build/torch_kernels/`` at the repository root, under a file name
-that carries a hash of the source and the flags (an edited ``.cu``
-rebuilds), and is loaded with ctypes.  ``--fmad=false`` keeps every
+that carries a hash of the source, the ``csrc`` headers it includes and
+the flags (an edited ``.cu`` or ``.cuh`` rebuilds), and is loaded with
+ctypes.  ``load(name, verbose=True)`` adds ``-Xptxas=-v`` and prints what
+the compiler says (registers, shared memory and spills per kernel).  ``--fmad=false`` keeps every
 ``a*b+c`` a rounded multiply and a rounded add, as the reference's
 interpret mode and the plain PyTorch versions compute them, so the
 triangle tests agree at shared edges.  A missing ``nvcc`` or a failed
@@ -20,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -31,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 
 _LOCK = threading.Lock()
+_NAME_LOCKS: dict[str, threading.Lock] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -44,10 +48,31 @@ def _nvcc() -> str:
                        "pbrt_v3_iile_tpu_torch/csrc need the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(path: str, seen: list) -> list:
+    """path and every csrc header it includes with quotes, recursively, in
+    first-include order."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    with open(path, "rb") as f:
+        text = f.read()
+    for inc in _INCLUDE.findall(text):
+        dep = os.path.join(os.path.dirname(path), inc.decode())
+        if os.path.exists(dep):
+            _sources(dep, seen)
+    return seen
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Build path of ``csrc/<name>.cu``: hashed on the source, the
+    headers it includes and the flags, so that an edit to any rebuilds."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources(os.path.join(CSRC, name + ".cu"), []):
+        with open(src, "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
@@ -70,8 +95,11 @@ def check_args(device, specs):
 
 
 def load(name: str, verbose: bool = False) -> ctypes.CDLL:
-    """Compile (once per source hash) and load ``csrc/<name>.cu``."""
+    """Compile (once per source hash) and load ``csrc/<name>.cu``.  Calls
+    for different names may run in parallel threads (one nvcc each)."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LIBS:
             return _LIBS[name]
         out = library_path(name)

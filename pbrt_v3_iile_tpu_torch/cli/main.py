@@ -5,8 +5,8 @@ Usage:
       [--spp N] [--seed S] [--accel bvh|clusters] [--compact] \
       [--device cuda|cpu] [--outfile PATH]
 
-Images are written through the reference's jax-free ``utils/image.py``
-(.pfm, .png tonemapped, .exr).
+Scenes are parsed by the port's own ``scene/api.py`` and images written
+through its ``utils/image.py`` (.pfm, .png tonemapped, .exr).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import sys
 
 
 def write_output(path: str, img):
-    from pbrt_v3_iile_tpu.utils import image as imglib
+    from ..utils import image as imglib
 
     ext = os.path.splitext(path)[1].lower()
     if ext == ".pfm":
@@ -51,7 +51,7 @@ def main(argv=None):
                     help="print render stats as JSON on stderr")
     args = ap.parse_args(argv)
 
-    from pbrt_v3_iile_tpu.scene import api as apilib
+    from ..scene import api as apilib
 
     from ..integrators import render as renderlib
 

@@ -26,9 +26,8 @@ from ..ops import intersect as isect
 from ..ops import lights as lightlib
 from ..ops import samplers as smplr
 from ..ops import sampling as smp
+from ..scene.api import LIGHT_INFINITE
 from ..utils import vecmath as vm
-
-from pbrt_v3_iile_tpu.scene.api import LIGHT_INFINITE
 
 
 RR_START = 3  # Russian roulette from the bounce after this one

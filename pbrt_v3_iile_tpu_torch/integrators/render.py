@@ -22,9 +22,10 @@ from . import path as pathlib_
 COMPACT_SCHEDULE = (1.0, 1.0, 0.5, 0.25, 0.25, 0.125)
 
 
-def make_integrator_config(sd, accel: str = None, device="cpu"):
-    """Resolve the path integrator's config.  accel None = auto: the
-    fused cluster kernel on CUDA, the BVH kernel's plain walker on CPU."""
+def make_integrator_config(sd, accel: str = None, device="cuda"):
+    """Resolve the path integrator's config for ``device`` (the card
+    unless the caller asks for the CPU).  accel None = auto: the fused
+    cluster kernel on CUDA, the BVH kernel's plain walker on CPU."""
     device = torch.device(device)
     if sd.integrator.kind != "path":
         raise NotImplementedError(

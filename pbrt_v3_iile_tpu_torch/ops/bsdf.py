@@ -15,12 +15,11 @@ from dataclasses import dataclass
 
 import torch
 
-from pbrt_v3_iile_tpu.scene.api import (
+from ..scene.api import (
     MAT_NONE, MAT_MATTE, MAT_PLASTIC, MAT_MIRROR, MAT_GLASS, MAT_METAL,
     MAT_UBER, MAT_SUBSTRATE, MAT_TRANSLUCENT, MAT_DISNEY, MAT_HAIR,
     MAT_FOURIER, MAT_SUBSURFACE,
 )
-
 from ..utils import vecmath as vm
 from . import sampling as smp
 

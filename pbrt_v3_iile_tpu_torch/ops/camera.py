@@ -14,8 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from pbrt_v3_iile_tpu.utils import transforms as xf
-
+from ..utils import transforms as xf
 from ..utils import vecmath as vm
 from . import sampling as smp
 

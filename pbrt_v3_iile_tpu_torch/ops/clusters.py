@@ -1,5 +1,5 @@
-"""Cluster cuts, ray features, coherence keys and the per-ray cull
-(port of the parts of ``ops/clusters.py`` the fused kernel uses).
+"""Cluster cuts, coherence keys and the per-ray cull (port of the parts
+of ``ops/clusters.py`` the fused kernel uses).
 
 Triangles are grouped into clusters cut from BVH subtrees; a 64-ray
 group is tested only against the clusters that some live member ray
@@ -13,9 +13,8 @@ import sys
 import numpy as np
 import torch
 
-from ..utils import vecmath as vm
-
 CLUSTER_SIZE = 64
+CALLS = 0  # per_ray_cull calls since import (the CUDA main path makes none)
 
 
 def _subtree_ranges(flat, max_tris=CLUSTER_SIZE):
@@ -50,16 +49,6 @@ def _subtree_ranges(flat, max_tris=CLUSTER_SIZE):
     finally:
         sys.setrecursionlimit(old)
     return out
-
-
-def ray_features(o, d):
-    """(N,3),(N,3) -> (r6 (N,6) Pluecker [d ; o x d], r8 (N,8) plane
-    [-o ; 1 ; d ; 0])."""
-    m = vm.cross(o, d)
-    r6 = torch.cat([d, m], dim=-1)
-    one = torch.ones(o.shape[:-1] + (1,), dtype=o.dtype, device=o.device)
-    r8 = torch.cat([-o, one, d, torch.zeros_like(one)], dim=-1)
-    return r6, r8
 
 
 def sort_key6(o, d, world_min, world_max, obits: int = 8, dbits: int = 4,
@@ -102,7 +91,10 @@ def per_ray_cull(o, d, t_alive, amin, amax, group, chunk_groups=64):
     (need (Gn,K) bool, tnear (Gn,K) f32): need[g,k] iff some live ray of
     group g enters cluster k's AABB within [0, t_max]; tnear is the least
     entry distance over those rays.  Chunked over groups so that the
-    (B, G, K) intermediates stay bounded."""
+    (B, G, K) intermediates stay bounded.  The plain version of the CUDA
+    cluster kernel's cull; on CUDA the main path never calls it."""
+    global CALLS
+    CALLS += 1
     G = group
     N = o.shape[0]
     Gn = N // G

@@ -1,19 +1,20 @@
-"""Fused cluster traversal (K1): tables, wrapper of ``csrc/cluster_traverse.cu``
-and its plain PyTorch version.
+"""Fused cluster traversal (K1): wrapper of ``csrc/cluster_traverse.cu``,
+its plain PyTorch version, and the wave around it.
 
 Replaces the TPU kernel ``pbrt_v3_iile_tpu/ops/clusters_pallas.py``
-(``_traverse_group_kernel``, wrapper ``intersect_clusters_fused``); see
-the CUDA source for the design and what bounds it on the H100.  Per
-wave: coherence sort (dead rays last, skipped when presorted) -> exact
-per-ray cull per 64-ray group -> one stable sort of the candidates by
-entry distance -> the kernel -> barycentrics from a 2x2 solve -> the
-overflow groups (more than max_candidates clusters) through the BVH
-kernel.  The overflow branch is a Python ``if`` on ``overflow.any()``,
-one host sync per wave.
+(``_traverse_group_kernel``, wrapper ``intersect_clusters_fused``) and the
+XLA cull that fed it (``ops/clusters.py::per_ray_cull``); see the CUDA
+source for the design and what bounds it on the H100.  Per wave:
+coherence sort (dead rays last, skipped when presorted) -> the kernel,
+which per 64-ray group culls every cluster box exactly, orders the
+group's candidates by (entry distance, cluster id) and traverses them ->
+barycentrics from a 2x2 solve -> the overflow groups (more than
+max_candidates clusters) through the BVH kernel.  The overflow branch is
+a Python ``if`` on ``overflow.any()``, one host sync per wave.
 
-On CPU tensors the kernel step runs the plain version, a dense per-group
-evaluation of the same candidate lists; on CUDA tensors it launches the
-kernel or raises.
+On CPU tensors the kernel step runs its plain version (``per_ray_cull``,
+``candidate_tables`` and a dense per-group evaluation of the lists); on
+CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -24,10 +25,10 @@ import numpy as np
 import torch
 
 from . import clusters as cluster_lib
-from .intersect import Hit
+from .intersect import Hit, _cross3
 
 C = 128          # triangles per cluster
-NF = 16          # ray feature floats (10 used)
+NF = 10          # ray feature floats [d, o x d, -o, 1]
 NRS = 24         # packed feature rows per cluster (22 used)
 NB = 4           # candidate lists are padded to a multiple of NB
 G_DEFAULT = 64   # rays per group (the CUDA kernel's block size)
@@ -75,60 +76,103 @@ def build_cluster_pack_np(flat, tri_p0, tri_e1, tri_e2,
 
 
 # ---------------------------------------------------------------------------
-# the kernel step: CUDA launch and plain version
+# the kernel step: CUDA launch, plain version, and a model of its lists
 # ---------------------------------------------------------------------------
+
+def maxc_for(n_clusters: int, max_candidates: int = MAXC_DEFAULT) -> int:
+    """Candidate-list capacity: min(max_candidates, K rounded up to NB),
+    rounded up to NB.  A group with more candidates overflows."""
+    maxc = min(max_candidates, ((n_clusters + NB - 1) // NB) * NB)
+    return ((maxc + NB - 1) // NB) * NB
+
 
 def _lib():
     from .. import _build
 
     fn = _build.load("cluster_traverse").cluster_traverse
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     return fn
 
 
-def traverse_groups_cuda(feat, cand, cpk, ctn, ncand, rays, t_max,
-                         any_hit: bool = False):
-    """Launch K1: one block per 64-ray group.  cand/cpk (Gn,MAXC) i32,
-    ctn (Gn,MAXC) f32, ncand (Gn,) i32, rays (Gn*64,16) f32, t_max
-    (Gn*64,) f32 -> (t, prim) of shape (Gn*64,)."""
+def cluster_traverse_cuda(cp, o, d, t_max, maxc: int, any_hit: bool = False):
+    """Launch K1: one block per 64-ray group culls, orders and traverses.
+
+    cp: the ClusterPack; o, d (Np,3) and t_max (Np,) f32 coherence-sorted
+    rays, Np a multiple of 64 -> (t (Np,) f32, prim (Np,) i32, n_cand
+    (Gn,) i32).  n_cand is the group's full candidate count; a group with
+    n_cand > maxc reports t = t_max, prim = -1 (the caller routes it to
+    the BVH kernel)."""
     from .. import _build
 
     global LAUNCHES
-    Gn, maxc = cand.shape
-    N = Gn * G_DEFAULT
-    dev = rays.device
+    Np = o.shape[0]
+    if Np % G_DEFAULT:
+        raise ValueError(f"cluster_traverse: {Np} rays is not a multiple "
+                         f"of the {G_DEFAULT}-ray group")
+    Gn = Np // G_DEFAULT
+    K = cp.feat.shape[0]
+    dev = o.device
     _build.check_args(dev, (
-        ("feat", feat, torch.float32, (feat.shape[0], NRS, C)),
-        ("cand", cand, torch.int32, (Gn, maxc)),
-        ("cpk", cpk, torch.int32, (Gn, maxc)),
-        ("ctn", ctn, torch.float32, (Gn, maxc)),
-        ("ncand", ncand, torch.int32, (Gn,)),
-        ("rays", rays, torch.float32, (N, NF)),
-        ("t_max", t_max, torch.float32, (N,))))
-    t = torch.empty(N, dtype=torch.float32, device=dev)
-    prim = torch.empty(N, dtype=torch.int32, device=dev)
+        ("feat", cp.feat, torch.float32, (K, NRS, C)),
+        ("aabb_min", cp.aabb_min, torch.float32, (K, 3)),
+        ("aabb_max", cp.aabb_max, torch.float32, (K, 3)),
+        ("tri_off", cp.tri_off, torch.int32, (K,)),
+        ("tri_cnt", cp.tri_cnt, torch.int32, (K,)),
+        ("o", o, torch.float32, (Np, 3)),
+        ("d", d, torch.float32, (Np, 3)),
+        ("t_max", t_max, torch.float32, (Np,))))
+    if cp.feat.data_ptr() % 16:
+        raise ValueError("feat: the kernel copies 16-byte runs; its data "
+                         "must be 16-byte aligned")
+    t = torch.empty(Np, dtype=torch.float32, device=dev)
+    prim = torch.empty(Np, dtype=torch.int32, device=dev)
+    n_cand = torch.empty(Gn, dtype=torch.int32, device=dev)
     if Gn == 0:
-        return t, prim
+        return t, prim, n_cand
     fn = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(feat.data_ptr(), cand.data_ptr(), cpk.data_ptr(),
-                 ctn.data_ptr(), ncand.data_ptr(), rays.data_ptr(),
-                 t_max.data_ptr(), t.data_ptr(), prim.data_ptr(), Gn, maxc,
-                 int(any_hit), stream)
+        err = fn(cp.feat.data_ptr(), cp.aabb_min.data_ptr(),
+                 cp.aabb_max.data_ptr(), cp.tri_off.data_ptr(),
+                 cp.tri_cnt.data_ptr(), K, o.data_ptr(), d.data_ptr(),
+                 t_max.data_ptr(), t.data_ptr(), prim.data_ptr(),
+                 n_cand.data_ptr(), Gn, maxc, int(any_hit), stream)
     if err != 0:
         raise RuntimeError(f"cluster_traverse launch failed: cudaError {err}")
     LAUNCHES += 1
-    return t, prim
+    return t, prim, n_cand
 
 
-def traverse_groups_plain(feat, cand, cpk, ctn, ncand, rays, t_max,
-                          any_hit: bool = False, chunk: int = 8):
-    """Plain PyTorch version of K1: every ray against every triangle of
-    its group's first ncand candidates, densely (chunks of groups).  The
-    kernel's early break is exact, so the closest hit is the same; for
-    any-hit the kernel may stop at any hit, so only validity is shared."""
+def cluster_traverse_plain(cp, o, d, t_max, maxc: int, any_hit: bool = False):
+    """Plain PyTorch version of K1 with the kernel's signature and result:
+    the torch cull and candidate tables, then every ray against every
+    triangle of its group's candidates, densely.  The kernel's early break
+    is exact, so the closest hit is the same; for any-hit the kernel may
+    stop at any hit, so only validity is shared."""
+    cand, cpk, _, ncand, n_cand = candidate_tables(cp, o, d, t_max, maxc)
+    t, prim = traverse_groups_plain(cp.feat, cand, cpk, ncand,
+                                    ray_table(o, d), t_max)
+    over = (n_cand > cand.shape[1]).repeat_interleave(G_DEFAULT)
+    t = torch.where(over, t_max, t)
+    prim = torch.where(over, -1, prim).to(torch.int32)
+    return t, prim, n_cand.to(torch.int32)
+
+
+def cluster_traverse(cp, o, d, t_max, maxc: int, any_hit: bool = False):
+    """K1 on CUDA tensors, its plain version on CPU tensors."""
+    if o.device.type == "cuda":
+        return cluster_traverse_cuda(cp, o, d, t_max, maxc, any_hit)
+    return cluster_traverse_plain(cp, o, d, t_max, maxc, any_hit)
+
+
+def traverse_groups_plain(feat, cand, cpk, ncand, rays, t_max,
+                          chunk: int = 8):
+    """Every ray against every triangle of its group's first ncand
+    candidates (the tables of ``candidate_tables``), densely, in chunks
+    of groups -> (t, prim)."""
     Gn, maxc = cand.shape
     G = G_DEFAULT
     r = rays.reshape(Gn, G, NF)
@@ -174,22 +218,9 @@ def traverse_groups_plain(feat, cand, cpk, ctn, ncand, rays, t_max,
     return torch.cat(t_out).reshape(-1), torch.cat(p_out).reshape(-1)
 
 
-def traverse_groups(feat, cand, cpk, ctn, ncand, rays, t_max,
-                    any_hit: bool = False):
-    """K1 on CUDA tensors, its plain version on CPU tensors."""
-    if rays.device.type == "cuda":
-        return traverse_groups_cuda(feat, cand, cpk, ctn, ncand, rays, t_max,
-                                    any_hit)
-    return traverse_groups_plain(feat, cand, cpk, ctn, ncand, rays, t_max,
-                                 any_hit)
-
-
-# ---------------------------------------------------------------------------
-# the wave: sort, cull, candidate tables, kernel, barycentrics, overflow
-# ---------------------------------------------------------------------------
-
 def candidate_tables(cp, os_, ds_, ts_, max_candidates: int = MAXC_DEFAULT):
-    """Per-group candidate lists in entry-distance order.
+    """Per-group candidate lists in entry-distance order, built by torch
+    ops (the plain version's; the kernel builds its own in shared memory).
 
     Returns (cand, cpk, ctn, ncand, n_cand): cand/cpk/ctn (Gn, MAXC) with
     cpk = tri_off*256 + tri_cnt (0 on empty slots), ncand = min(n_cand,
@@ -197,9 +228,7 @@ def candidate_tables(cp, os_, ds_, ts_, max_candidates: int = MAXC_DEFAULT):
     group = G_DEFAULT
     Np = os_.shape[0]
     Gn = Np // group
-    K = cp.aabb_min.shape[0]
-    MAXC = min(max_candidates, ((K + NB - 1) // NB) * NB)
-    MAXC = ((MAXC + NB - 1) // NB) * NB
+    MAXC = maxc_for(cp.aabb_min.shape[0], max_candidates)
     chunk = 512 if os_.device.type == "cuda" else 64
     mask, tnear = cluster_lib.per_ray_cull(os_, ds_, ts_, cp.aabb_min,
                                            cp.aabb_max, group,
@@ -224,12 +253,65 @@ def candidate_tables(cp, os_, ds_, ts_, max_candidates: int = MAXC_DEFAULT):
 
 
 def ray_table(os_, ds_):
-    """(Np,3) rays -> (Np,16) kernel features [d, o x d, -o, 1, 0...]."""
-    r6, r8 = cluster_lib.ray_features(os_, ds_)
-    pad = torch.zeros((os_.shape[0], NF - 10), dtype=torch.float32,
-                      device=os_.device)
-    return torch.cat([r6, r8[:, :4], pad], dim=1).contiguous()
+    """(Np,3) rays -> (Np,10) features [d, o x d, -o, 1], the cross
+    product with each product rounded, as the kernel computes it."""
+    one = torch.ones((os_.shape[0], 1), dtype=torch.float32, device=os_.device)
+    return torch.cat([ds_, _cross3(os_, ds_), -os_, one], dim=1)
 
+
+def candidate_lists_model(cp, os_, ds_, ts_, maxc: int):
+    """Per-group model of the kernel's list building, for the tests: the
+    cull of each cluster box against the group's 64 rays with the
+    kernel's arithmetic, compaction of the hits (the kernel appends them
+    in an unspecified order; here in cluster order), truncation at maxc,
+    and the rank of each entry by (tnear, cluster id).
+
+    Returns (need (Gn,K) bool, tnear (Gn,K) f32 with 3e38 where not
+    needed, lists: per group the ordered (tnear, cluster id) pairs or
+    None for an overflowing group, n_cand (Gn,) i32)."""
+    G = G_DEFAULT
+    Gn = os_.shape[0] // G
+    K = cp.aabb_min.shape[0]
+    needs, tnears, lists, counts = [], [], [], []
+    for g in range(Gn):
+        o = os_[g * G:(g + 1) * G]
+        d = ds_[g * G:(g + 1) * G]
+        tm = ts_[g * G:(g + 1) * G]
+        inv = torch.where(torch.abs(d) > 1e-12, torch.reciprocal(d),
+                          torch.where(d >= 0, 1e30, -1e30))
+        tm_eff = torch.where(tm > 0, tm, -BIG_T)
+        tn = torch.zeros((G, K))
+        tf = torch.full((G, K), BIG_T)
+        for a in range(3):
+            lo = (cp.aabb_min[None, :, a] - o[:, None, a]) * inv[:, None, a]
+            hi = (cp.aabb_max[None, :, a] - o[:, None, a]) * inv[:, None, a]
+            tn = torch.maximum(tn, torch.minimum(lo, hi))
+            tf = torch.minimum(tf, torch.maximum(lo, hi))
+        tf = tf * 1.0000004
+        enter = (tn <= tf) & (tf > 0) & (tn <= tm_eff[:, None])
+        need = enter.any(0)
+        tnear = torch.where(enter, torch.clamp(tn, min=0.0), BIG_T).amin(0)
+        needs.append(need)
+        tnears.append(tnear)
+        ids = torch.nonzero(need).flatten()              # compaction
+        counts.append(int(ids.numel()))
+        if ids.numel() > maxc:
+            lists.append(None)                           # overflow
+            continue
+        tl = tnear[ids]
+        before = ((tl[None, :] < tl[:, None])
+                  | ((tl[None, :] == tl[:, None]) & (ids[None, :] < ids[:, None])))
+        rank = before.sum(1)                             # rank sort
+        order = torch.empty_like(ids)
+        order[rank] = torch.arange(ids.numel())
+        lists.append((tl[order], ids[order]))
+    return (torch.stack(needs), torch.stack(tnears), lists,
+            torch.tensor(counts, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the wave: sort, kernel, barycentrics, overflow
+# ---------------------------------------------------------------------------
 
 def _barycentrics(os_, ds_, t, prim, valid, tri_p0, tri_e1, tri_e2):
     """Post-hoc barycentrics: one row gather and a 2x2 solve."""
@@ -259,9 +341,10 @@ def intersect_clusters_fused(cp, o, d, t_max, *, any_hit: bool = False,
     """Full-scene closest-hit (or any-hit) through the fused cluster
     kernel.  Returns Hit in the original ray order with BVH-order
     triangle ids; groups with more than max_candidates candidates go to
-    ``fallback(o, d, t_alive)``.  presorted: rays already arrive
+    ``fallback(o, d, t_alive)`` (without one, such a group raises: the
+    kernel leaves it unanswered).  presorted: rays already arrive
     coherence-sorted with dead rays last (no sort, no unsort).  Groups
-    are 64 rays, the kernel's block size."""
+    are 64 rays, the kernel's block."""
     N = o.shape[0]
     G = G_DEFAULT
     dev = o.device
@@ -273,7 +356,6 @@ def intersect_clusters_fused(cp, o, d, t_max, *, any_hit: bool = False,
         t_max = torch.cat([t_max, torch.full((pad,), -1.0, dtype=t_max.dtype,
                                              device=dev)])
     Np = N + pad
-    Gn = Np // G
     wmin = torch.amin(cp.aabb_min, 0) if world_min is None else world_min
     wmax = torch.amax(cp.aabb_max, 0) if world_max is None else world_max
     if presorted:
@@ -287,12 +369,9 @@ def intersect_clusters_fused(cp, o, d, t_max, *, any_hit: bool = False,
         inv_perm = torch.empty_like(perm)
         inv_perm[perm] = torch.arange(Np, device=dev)
 
-    cand, cpk, ctn, ncand, n_cand = candidate_tables(cp, os_, ds_, ts_,
-                                                     max_candidates)
-    MAXC = cand.shape[1]
-    rays = ray_table(os_, ds_)
-    t, prim = traverse_groups(cp.feat, cand, cpk, ctn, ncand, rays,
-                              ts_.contiguous(), any_hit=any_hit)
+    MAXC = maxc_for(cp.aabb_min.shape[0], max_candidates)
+    t, prim, n_cand = cluster_traverse(cp, os_.contiguous(), ds_.contiguous(),
+                                       ts_.contiguous(), MAXC, any_hit)
     valid = prim >= 0
     if tri_p0 is not None:
         b1, b2 = _barycentrics(os_, ds_, t, prim, valid, tri_p0, tri_e1,
@@ -302,7 +381,10 @@ def intersect_clusters_fused(cp, o, d, t_max, *, any_hit: bool = False,
         b2 = torch.zeros(Np, device=dev)
 
     overflow = n_cand > MAXC
-    if fallback is not None and bool(overflow.any()):
+    if bool(overflow.any()):
+        if fallback is None:
+            raise ValueError("intersect_clusters_fused: groups overflow "
+                             f"{MAXC} candidates and no fallback was given")
         ovr = overflow.repeat_interleave(G)
         t_fb = torch.where(ovr & (ts_ > 0), ts_, -1.0)
         fb = fallback(os_, ds_, t_fb)

@@ -62,13 +62,16 @@ def _moller(o, d, p0, e1, e2, t_cur):
     return valid, t, u, v
 
 
-def intersect_bvh(scene, o, d, t_max, any_hit: bool = False) -> Hit:
+def intersect_bvh(scene, o, d, t_max, any_hit: bool = False,
+                  work: dict = None) -> Hit:
     """Closest-hit (or any-hit) against the triangle BVH: the plain
     PyTorch version of the BVH kernel.
 
     Every step, each live ray visits one node; only live rays are
     gathered, so the cost follows the live count (the per-ray results are
-    those of the reference walker, which steps every ray each iteration)."""
+    those of the reference walker, which steps every ray each iteration).
+    work: a dict to which the node visits ("nodes") and triangle tests
+    ("tris") of these rays are added (one host sync per step)."""
     N = o.shape[0]
     dev = o.device
     inv_d = torch.where(torch.abs(d) > 1e-12,
@@ -85,6 +88,8 @@ def intersect_bvh(scene, o, d, t_max, any_hit: bool = False) -> Hit:
     tris = scene.tris_packed
     idx = torch.arange(N, device=dev)
     while idx.numel() > 0:
+        if work is not None:
+            work["nodes"] = work.get("nodes", 0) + idx.numel()
         nid = node[idx]
         oo, dd, ii = o[idx], d[idx], inv_d[idx]
         tt = t[idx]
@@ -106,6 +111,8 @@ def intersect_bvh(scene, o, d, t_max, any_hit: bool = False) -> Hit:
             m = leaf_hit & (k < ncount)
             if not bool(m.any()):
                 break
+            if work is not None:
+                work["tris"] = work.get("tris", 0) + int(m.sum())
             pid = torch.clamp(nright + k, 0, tris.shape[0] - 1)  # jnp.take clamps
             tr = tris[pid]
             ok, tk, uk, vk = _moller(oo, dd, tr[:, 0:3], tr[:, 3:6], tr[:, 6:9], tt)

@@ -14,11 +14,10 @@ from dataclasses import dataclass
 
 import torch
 
-from pbrt_v3_iile_tpu.scene.api import (
+from ..scene.api import (
     LIGHT_POINT, LIGHT_DISTANT, LIGHT_INFINITE, LIGHT_AREA_TRI,
     LIGHT_AREA_SPHERE, LIGHT_SPOT,
 )
-
 from ..utils import vecmath as vm
 from . import sampling as smp
 

@@ -1,0 +1,914 @@
+"""Stateful scene-construction API driven by the parser.
+
+Mirrors the reference's pbrt* API surface and graphics-state stack
+(ref: src/core/api.cpp: pbrtAttributeBegin/End, CTM stack, RenderOptions,
+GraphicsState), but instead of building a C++ primitive DAG it flattens
+everything to world-space numpy arrays (triangle soup + analytic spheres +
+SoA material/light tables) ready for device upload.
+
+The port's own copy of the JAX package's jax-free ``scene/api.py``: the
+port imports nothing of that package.  One change: a Fourier material
+raises NotImplementedError here (ROADMAP slice 3), as the device build
+does for the other unported materials.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+from typing import Optional
+
+import numpy as np
+
+from ..utils import log
+
+from ..utils import transforms as xf
+from .paramset import ParamSet
+from . import shapes as shapelib
+
+MAT_NONE = 0
+MAT_MATTE = 1
+MAT_PLASTIC = 2
+MAT_MIRROR = 3
+MAT_GLASS = 4
+MAT_METAL = 5
+MAT_UBER = 6
+MAT_SUBSTRATE = 7
+MAT_TRANSLUCENT = 8
+MAT_DISNEY = 9
+MAT_FOURIER = 10
+MAT_HAIR = 11
+MAT_SUBSURFACE = 12
+
+MATERIAL_IDS = {
+    "": MAT_NONE,
+    "none": MAT_NONE,
+    "matte": MAT_MATTE,
+    "plastic": MAT_PLASTIC,
+    "mirror": MAT_MIRROR,
+    "glass": MAT_GLASS,
+    "metal": MAT_METAL,
+    "uber": MAT_UBER,
+    "substrate": MAT_SUBSTRATE,
+    "translucent": MAT_TRANSLUCENT,
+    "disney": MAT_DISNEY,
+    "fourier": MAT_FOURIER,
+    "hair": MAT_HAIR,
+    "subsurface": MAT_SUBSURFACE,
+    "kdsubsurface": MAT_SUBSURFACE,
+}
+
+LIGHT_POINT = 0
+LIGHT_DISTANT = 1
+LIGHT_INFINITE = 2
+LIGHT_AREA_TRI = 3    # diffuse area light over a triangle range
+LIGHT_AREA_SPHERE = 4  # diffuse area light on an analytic sphere
+LIGHT_SPOT = 5
+LIGHT_GONIO = 6       # goniophotometric: point light with angular map
+LIGHT_PROJECTION = 7  # point light projecting a texture through a fov
+
+
+def _fdr(eta: float) -> float:
+    """Average diffuse Fresnel reflectance (Egan & Hilgeman fit, the same
+    relation used by the reference's BSSRDF boundary term — ref:
+    core/bssrdf.cpp FresnelMoment1 role)."""
+    return -1.440 / (eta * eta) + 0.710 / eta + 0.668 + 0.0636 * eta
+
+
+@dataclasses.dataclass
+class MaterialRecord:
+    """SoA-able material description (ref: src/materials/*).
+
+    Color slots may reference a named texture; the builder resolves these
+    to texture table ids or bakes constants.
+    """
+    kind: int = MAT_MATTE
+    kd: np.ndarray = None          # diffuse reflectance
+    ks: np.ndarray = None          # glossy reflectance
+    kr: np.ndarray = None          # specular reflection
+    kt: np.ndarray = None          # specular transmission
+    roughness: float = 0.0         # plastic default .1? (handled at create)
+    uroughness: float = -1.0
+    vroughness: float = -1.0
+    eta: float = 1.5
+    metal_eta: np.ndarray = None   # spectral eta for metal
+    metal_k: np.ndarray = None
+    sigma: float = 0.0             # oren-nayar sigma (matte)
+    remap_roughness: bool = True
+    kd_tex: str = ""               # named texture refs (empty = constant)
+    ks_tex: str = ""
+    sigma_tex: str = ""
+    rough_tex: str = ""
+    bump_tex: str = ""
+    # disney extras [metallic, specTint, sheen, sheenTint, clearcoat,
+    # clearcoatGloss, specTrans, flatness] (ref: materials/disney.cpp)
+    aux: np.ndarray = None
+    # fourier: host table (ops/fourierbsdf.FourierTable) densified at
+    # device build; kd/ks/roughness above hold the sampling proxy
+    fourier_table: object = None
+    # subsurface: per-channel Burley diffusion length (kd holds the
+    # profile albedo A; see the subsurface branch below)
+    sss_d: np.ndarray = None
+
+
+@dataclasses.dataclass
+class LightRecord:
+    kind: int
+    L: np.ndarray                  # radiance/intensity RGB (scaled)
+    position: np.ndarray = None    # point/spot
+    direction: np.ndarray = None   # distant/spot axis
+    cos_total: float = -1.0        # spot cone
+    cos_falloff: float = -1.0
+    # area lights
+    two_sided: bool = False
+    tri_start: int = -1            # triangle range [start, start+count)
+    tri_count: int = 0
+    sphere_index: int = -1
+    map_name: str = ""             # infinite/gonio/projection image map
+    to_world: np.ndarray = None    # (3,3) light-to-world rotation (infinite)
+    w2l: np.ndarray = None         # (3,3) world-to-light rotation (gonio/proj)
+    fov: float = 45.0              # projection light field of view (deg)
+
+
+@dataclasses.dataclass
+class MediumRecord:
+    """Participating medium.  Homogeneous (ref: src/media/homogeneous.cpp
+    HomogeneousMedium) or heterogeneous grid-density (ref:
+    src/media/grid.cpp GridDensityMedium: trilinear density on a
+    (nx,ny,nz) grid over the medium-space unit cube, delta-tracked)."""
+    sigma_a: np.ndarray = None
+    sigma_s: np.ndarray = None
+    g: float = 0.0
+    density: np.ndarray = None      # (nz,ny,nx) f32 or None (homogeneous)
+    w2m: np.ndarray = None          # (4,4) world->medium (unit cube) xform
+
+
+@dataclasses.dataclass
+class TextureRecord:
+    name: str
+    kind: str                      # constant|scale|mix|checkerboard|imagemap|...
+    is_float: bool
+    params: ParamSet
+    uscale: float = 1.0
+    vscale: float = 1.0
+
+
+@dataclasses.dataclass
+class CameraDesc:
+    kind: str = "perspective"
+    cam_to_world: np.ndarray = dataclasses.field(default_factory=xf.identity)
+    # AnimatedTransform end-time camera-to-world (ref: transform.h
+    # AnimatedTransform; api.cpp pbrtCamera builds one from curTransform[2])
+    cam_to_world_end: np.ndarray = None
+    transform_times: tuple = (0.0, 1.0)
+    fov: float = 90.0
+    lens_radius: float = 0.0
+    focal_distance: float = 1e6
+    screen_window: Optional[np.ndarray] = None
+    shutter_open: float = 0.0
+    shutter_close: float = 1.0
+    lens_file: str = ""            # realistic camera lens table (.dat)
+    aperture_diameter: float = 1.0  # mm (realistic.cpp:43)
+
+
+@dataclasses.dataclass
+class FilmDesc:
+    x_resolution: int = 1280
+    y_resolution: int = 720
+    filename: str = "out.exr"
+    crop: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.array([0.0, 1.0, 0.0, 1.0])
+    )
+    scale: float = 1.0
+    diagonal: float = 35.0
+    filter_name: str = "box"
+    filter_xwidth: float = 0.5
+    filter_ywidth: float = 0.5
+    filter_alpha: float = 2.0
+    filter_b: float = 1.0 / 3.0
+    filter_c: float = 1.0 / 3.0
+    filter_tau: float = 3.0
+
+
+@dataclasses.dataclass
+class SamplerDesc:
+    kind: str = "halton"
+    pixel_samples: int = 16
+    jitter: bool = True
+    xsamples: int = 4
+    ysamples: int = 4
+
+
+@dataclasses.dataclass
+class IntegratorDesc:
+    kind: str = "path"
+    max_depth: int = 5
+    rr_threshold: float = 1.0
+    light_strategy: str = "spatial"
+    # directlighting
+    dl_strategy: str = "all"
+    # ao
+    cos_sample: bool = True
+    n_samples: int = 64
+    # mlt (ref: mlt.cpp CreateMLTIntegrator defaults)
+    mutations_per_pixel: int = 100
+    mlt_p_large: float = 0.3
+    mlt_sigma: float = 0.01
+    # sppm (ref: sppm.cpp CreateSPPMIntegrator defaults)
+    photons_per_iteration: int = -1   # -1 => one per pixel
+    initial_radius: float = 1.0
+    sppm_iterations: int = 64
+
+
+class SceneDesc:
+    """Flat world-space scene: the output of parsing, pre-device."""
+
+    def __init__(self):
+        self.camera = CameraDesc()
+        self.film = FilmDesc()
+        self.sampler = SamplerDesc()
+        self.integrator = IntegratorDesc()
+        self.accelerator = "bvh"
+        # geometry: per-mesh blocks, concatenated by the builder
+        self.tri_blocks = []       # dicts: p (n,3,3), n, uv, mat, light
+        self.spheres = []          # dicts: center, radius, mat, light
+        self.materials: list[MaterialRecord] = [MaterialRecord(kind=MAT_MATTE,
+                                                               kd=np.full(3, 0.5))]
+        self.lights: list[LightRecord] = []
+        self.textures: dict[str, TextureRecord] = {}
+        self.named_materials: dict[str, int] = {}
+        self.media: list[MediumRecord] = []
+        self.named_media: dict[str, int] = {}
+        self.camera_medium: int = -1
+        self.n_triangles = 0
+        self.has_motion = False    # any animated shape (object motion blur)
+
+    def add_triangles(self, p, n, uv, mat_id, light_id=-1,
+                      med_in=-1, med_out=-1, p_end=None, n_end=None,
+                      face=None, anim=None):
+        cnt = p.shape[0]
+        if cnt == 0:
+            return self.n_triangles
+        start = self.n_triangles
+        if p_end is not None or anim is not None:
+            self.has_motion = True
+        self.tri_blocks.append(
+            dict(
+                p=p.astype(np.float32),
+                n=None if n is None else n.astype(np.float32),
+                uv=None if uv is None else uv.astype(np.float32),
+                # ptex face index (ref: triangle.cpp:682 faceIndices ->
+                # SurfaceInteraction::faceIndex); default: ordinal in mesh
+                face=(np.arange(cnt, dtype=np.int32) if face is None
+                      else np.asarray(face, np.int32)),
+                mat=np.full(cnt, mat_id, dtype=np.int32),
+                light=np.full(cnt, light_id, dtype=np.int32),
+                med_in=np.full(cnt, med_in, dtype=np.int32),
+                med_out=np.full(cnt, med_out, dtype=np.int32),
+                p_end=None if p_end is None else p_end.astype(np.float32),
+                n_end=None if n_end is None else n_end.astype(np.float32),
+                # rotation-decomposed AnimatedTransform data (ref:
+                # transform.h:412 Decompose/Interpolate): object-space
+                # verts + (T, q, S) at both keyframes, evaluated at the
+                # scene-global sub-keyframe times by the device build
+                anim=anim,
+            )
+        )
+        self.n_triangles += cnt
+        return start
+
+
+class _GraphicsState:
+    def __init__(self):
+        self.material_index = 0
+        self.area_light: Optional[ParamSet] = None
+        self.reverse_orientation = False
+        self.medium_in = -1
+        self.medium_out = -1
+
+    def copy(self):
+        g = _GraphicsState()
+        g.material_index = self.material_index
+        g.area_light = self.area_light
+        g.reverse_orientation = self.reverse_orientation
+        g.medium_in = self.medium_in
+        g.medium_out = self.medium_out
+        return g
+
+
+class Api:
+    """Receives parsed directives; mirrors pbrt's api.cpp state machine."""
+
+    def __init__(self, base_dir: str = "."):
+        self.base_dir = base_dir
+        self.scene = SceneDesc()
+        self.ctm = xf.identity()
+        # AnimatedTransform support (ref: core/api.cpp TransformSet
+        # curTransform[2] + activeTransformBits): a parallel end-time CTM
+        # receives the same ops when the End bit is active.  Geometry uses
+        # the start transform; the *camera* interpolates per-ray (ops/
+        # camera.py) — the dominant motion-blur use.
+        self.ctm_end = xf.identity()
+        self.active = 3              # bit 1 = StartTime, bit 2 = EndTime
+        self.transform_times = (0.0, 1.0)
+        self.transform_stack = []
+        self.graphics_stack = []
+        self.gs = _GraphicsState()
+        self.in_world = False
+        self.coord_systems = {}
+        self.objects = {}           # name -> list of recorded shape calls
+        self.recording: Optional[str] = None
+        self.record_base_ctm = None
+
+    # ------------------------------------------------------------------
+    # transforms
+    def _concat(self, m):
+        if self.active & 1:
+            self.ctm = self.ctm @ m
+        if self.active & 2:
+            self.ctm_end = self.ctm_end @ m
+
+    def Identity(self):
+        if self.active & 1:
+            self.ctm = xf.identity()
+        if self.active & 2:
+            self.ctm_end = xf.identity()
+
+    def Translate(self, dx, dy, dz):
+        self._concat(xf.translate(dx, dy, dz))
+
+    def Scale(self, sx, sy, sz):
+        self._concat(xf.scale(sx, sy, sz))
+
+    def Rotate(self, angle, x, y, z):
+        self._concat(xf.rotate(angle, x, y, z))
+
+    def LookAt(self, ex, ey, ez, lx, ly, lz, ux, uy, uz):
+        # world-to-camera gets concatenated (ref: api.cpp pbrtLookAt)
+        c2w = xf.look_at([ex, ey, ez], [lx, ly, lz], [ux, uy, uz])
+        self._concat(xf.inverse(c2w))
+
+    def Transform(self, *m16):
+        m = np.asarray(m16, dtype=np.float64).reshape(4, 4).T
+        if self.active & 1:
+            self.ctm = m.copy()
+        if self.active & 2:
+            self.ctm_end = m.copy()
+
+    def ConcatTransform(self, *m16):
+        self._concat(np.asarray(m16, dtype=np.float64).reshape(4, 4).T)
+
+    def ActiveTransform(self, which):
+        self.active = {"StartTime": 1, "EndTime": 2}.get(which, 3)
+
+    def TransformTimes(self, t0, t1):
+        self.transform_times = (float(t0), float(t1))
+
+    def CoordinateSystem(self, name):
+        self.coord_systems[name] = self.ctm.copy()
+
+    def CoordSysTransform(self, name):
+        if name in self.coord_systems:
+            self.ctm = self.coord_systems[name].copy()
+            self.ctm_end = self.coord_systems[name].copy()
+
+    def TransformBegin(self):
+        self.transform_stack.append(
+            (self.ctm.copy(), self.ctm_end.copy(), self.active))
+
+    def TransformEnd(self):
+        self.ctm, self.ctm_end, self.active = self.transform_stack.pop()
+
+    # ------------------------------------------------------------------
+    # pre-world options
+    def Camera(self, kind, ps: ParamSet):
+        cam = self.scene.camera
+        cam.kind = kind
+        # CTM at Camera statement is world-to-camera (ref: api.cpp pbrtCamera)
+        cam.cam_to_world = xf.inverse(self.ctm)
+        end = xf.inverse(self.ctm_end)
+        cam.cam_to_world_end = None if np.allclose(end, cam.cam_to_world) \
+            else end
+        cam.transform_times = self.transform_times
+        cam.shutter_open = ps.find_one_float("shutteropen", 0.0)
+        cam.shutter_close = ps.find_one_float("shutterclose", 1.0)
+        cam.fov = ps.find_one_float("fov", 90.0)
+        cam.lens_radius = ps.find_one_float("lensradius", 0.0)
+        cam.focal_distance = ps.find_one_float("focaldistance", 1e6)
+        # realistic camera spells it "focusdistance" (realistic.cpp:782)
+        cam.focal_distance = ps.find_one_float("focusdistance",
+                                               cam.focal_distance)
+        # realistic lens-system camera (ref: cameras/realistic.cpp
+        # CreateRealisticCamera: lensfile/aperturediameter in mm)
+        cam.lens_file = ps.find_one_string("lensfile", "")
+        cam.aperture_diameter = ps.find_one_float("aperturediameter", 1.0)
+        sw = ps.find_floats("screenwindow")
+        if sw is not None and sw.size == 4:
+            cam.screen_window = sw
+        self.coord_systems["camera"] = self.ctm.copy()
+
+    def Film(self, kind, ps: ParamSet):
+        f = self.scene.film
+        f.x_resolution = ps.find_one_int("xresolution", 1280)
+        f.y_resolution = ps.find_one_int("yresolution", 720)
+        f.filename = ps.find_one_string("filename", "out.exr")
+        f.scale = ps.find_one_float("scale", 1.0)
+        f.diagonal = ps.find_one_float("diagonal", 35.0)
+        cw = ps.find_floats("cropwindow")
+        if cw is not None and cw.size == 4:
+            f.crop = cw
+
+    def Filter(self, kind, ps: ParamSet):
+        f = self.scene.film
+        f.filter_name = kind
+        defaults = {"box": 0.5, "triangle": 2.0, "gaussian": 2.0,
+                    "mitchell": 2.0, "sinc": 4.0}
+        d = defaults.get(kind, 2.0)
+        f.filter_xwidth = ps.find_one_float("xwidth", d)
+        f.filter_ywidth = ps.find_one_float("ywidth", d)
+        f.filter_alpha = ps.find_one_float("alpha", 2.0)
+        f.filter_b = ps.find_one_float("B", 1.0 / 3.0)
+        f.filter_c = ps.find_one_float("C", 1.0 / 3.0)
+        f.filter_tau = ps.find_one_float("tau", 3.0)
+
+    PixelFilter = Filter
+
+    def Sampler(self, kind, ps: ParamSet):
+        s = self.scene.sampler
+        s.kind = kind
+        s.pixel_samples = ps.find_one_int("pixelsamples", 16)
+        s.jitter = ps.find_one_bool("jitter", True)
+        s.xsamples = ps.find_one_int("xsamples", 4)
+        s.ysamples = ps.find_one_int("ysamples", 4)
+        if kind == "stratified":
+            s.pixel_samples = s.xsamples * s.ysamples
+
+    def Integrator(self, kind, ps: ParamSet):
+        i = self.scene.integrator
+        i.kind = kind
+        i.max_depth = ps.find_one_int("maxdepth", 5)
+        i.rr_threshold = ps.find_one_float("rrthreshold", 1.0)
+        i.light_strategy = ps.find_one_string("lightsamplestrategy", "spatial")
+        i.dl_strategy = ps.find_one_string("strategy", "all")
+        i.cos_sample = ps.find_one_bool("cossample", True)
+        i.n_samples = ps.find_one_int("nsamples", 64)
+        i.mutations_per_pixel = ps.find_one_int("mutationsperpixel", 100)
+        i.mlt_p_large = ps.find_one_float("largestepprobability", 0.3)
+        i.mlt_sigma = ps.find_one_float("sigma", 0.01)
+        i.photons_per_iteration = ps.find_one_int("photonsperiteration", -1)
+        i.initial_radius = ps.find_one_float("radius", 1.0)
+        i.sppm_iterations = ps.find_one_int("numiterations", 64)
+
+    def Accelerator(self, kind, ps: ParamSet):
+        self.scene.accelerator = kind
+
+    def MakeNamedMedium(self, name, ps: ParamSet):
+        """(ref: api.cpp pbrtMakeNamedMedium + media/homogeneous.cpp
+        defaults sigma_a=1, sigma_s=1 scaled by 'scale'; heterogeneous:
+        media/grid.cpp GridDensityMedium + api.cpp MakeMedium p0/p1
+        medium-space box under the CTM)."""
+        sc = ps.find_one_float("scale", 1.0)
+        rec = MediumRecord(
+            sigma_a=ps.find_one_rgb("sigma_a", [1, 1, 1]) * sc,
+            sigma_s=ps.find_one_rgb("sigma_s", [1, 1, 1]) * sc,
+            g=ps.find_one_float("g", 0.0),
+        )
+        kind = ps.find_one_string("type", "homogeneous")
+        if kind == "heterogeneous":
+            nx = ps.find_one_int("nx", 1)
+            ny = ps.find_one_int("ny", 1)
+            nz = ps.find_one_int("nz", 1)
+            dvals = ps.find_floats("density")
+            dens = (np.asarray(dvals, np.float32) if dvals is not None
+                    else np.ones(nx * ny * nz, np.float32))
+            if dens.size != nx * ny * nz:
+                import sys
+                log.warning(f"medium '{name}': {dens.size} density "
+            f"values for {nx}x{ny}x{nz} grid; padding/truncating")
+                dens = np.resize(dens, nx * ny * nz)
+            # pbrt layout: density[(z*ny + y)*nx + x]
+            rec.density = dens.reshape(nz, ny, nx)
+            p0s, p1s = ps.find_points("p0"), ps.find_points("p1")
+            p0 = np.asarray(p0s[0] if p0s is not None else [0, 0, 0],
+                            np.float32)
+            p1 = np.asarray(p1s[0] if p1s is not None else [1, 1, 1],
+                            np.float32)
+            ext = np.maximum(p1 - p0, 1e-9)
+            m2w = self.ctm @ xf.translate(*p0) @ xf.scale(*ext)
+            rec.w2m = xf.inverse(m2w)
+        self.scene.media.append(rec)
+        self.scene.named_media[name] = len(self.scene.media) - 1
+
+    def MediumInterface(self, inside, outside):
+        self.gs.medium_in = self.scene.named_media.get(inside, -1)
+        self.gs.medium_out = self.scene.named_media.get(outside, -1)
+        if not self.in_world:
+            # pre-world: the camera sits in the 'outside' medium
+            self.scene.camera_medium = self.gs.medium_out
+
+    # ------------------------------------------------------------------
+    # world block
+    def WorldBegin(self):
+        self.in_world = True
+        self.ctm = xf.identity()
+        self.ctm_end = xf.identity()
+        self.active = 3
+        self.coord_systems["world"] = self.ctm.copy()
+
+    def WorldEnd(self):
+        self.in_world = False
+
+    def AttributeBegin(self):
+        self.graphics_stack.append(self.gs.copy())
+        self.transform_stack.append(
+            (self.ctm.copy(), self.ctm_end.copy(), self.active))
+
+    def AttributeEnd(self):
+        self.gs = self.graphics_stack.pop()
+        self.ctm, self.ctm_end, self.active = self.transform_stack.pop()
+
+    def ReverseOrientation(self):
+        self.gs.reverse_orientation = not self.gs.reverse_orientation
+
+    # ------------------------------------------------------------------
+    # materials / textures / lights
+    def Material(self, kind, ps: ParamSet):
+        self.gs.material_index = self._make_material(kind, ps)
+
+    def MakeNamedMaterial(self, name, ps: ParamSet):
+        kind = ps.find_one_string("type", "matte")
+        self.scene.named_materials[name] = self._make_material(kind, ps)
+
+    def NamedMaterial(self, name):
+        if name in self.scene.named_materials:
+            self.gs.material_index = self.scene.named_materials[name]
+
+    def _make_material(self, kind: str, ps: ParamSet) -> int:
+        m = MaterialRecord()
+        m.kind = MATERIAL_IDS.get(kind, MAT_MATTE)
+        if m.kind == MAT_FOURIER:
+            raise NotImplementedError(
+                "fourier material is not ported yet (ROADMAP slice 3)")
+        # defaults follow the Create*Material factories (src/materials/*.cpp)
+        if kind == "matte":
+            m.kd = ps.find_one_rgb("Kd", [0.5, 0.5, 0.5])
+            m.sigma = ps.find_one_float("sigma", 0.0)
+        elif kind == "plastic":
+            m.kd = ps.find_one_rgb("Kd", [0.25, 0.25, 0.25])
+            m.ks = ps.find_one_rgb("Ks", [0.25, 0.25, 0.25])
+            m.roughness = ps.find_one_float("roughness", 0.1)
+        elif kind == "mirror":
+            m.kr = ps.find_one_rgb("Kr", [0.9, 0.9, 0.9])
+        elif kind == "glass":
+            m.kr = ps.find_one_rgb("Kr", [1, 1, 1])
+            m.kt = ps.find_one_rgb("Kt", [1, 1, 1])
+            m.eta = ps.find_one_float("eta", ps.find_one_float("index", 1.5))
+            m.uroughness = ps.find_one_float("uroughness", 0.0)
+            m.vroughness = ps.find_one_float("vroughness", 0.0)
+        elif kind == "metal":
+            # default copper spectrum collapsed to RGB (metal.cpp CopperN/K)
+            m.metal_eta = ps.find_one_rgb("eta", [0.2004, 0.9240, 1.1022])
+            m.metal_k = ps.find_one_rgb("k", [3.9129, 2.4528, 2.1421])
+            m.roughness = ps.find_one_float("roughness", 0.01)
+            m.uroughness = ps.find_one_float("uroughness", -1.0)
+            m.vroughness = ps.find_one_float("vroughness", -1.0)
+        elif kind == "uber":
+            m.kd = ps.find_one_rgb("Kd", [0.25, 0.25, 0.25])
+            m.ks = ps.find_one_rgb("Ks", [0.25, 0.25, 0.25])
+            m.kr = ps.find_one_rgb("Kr", [0, 0, 0])
+            m.kt = ps.find_one_rgb("Kt", [0, 0, 0])
+            m.roughness = ps.find_one_float("roughness", 0.1)
+            m.eta = ps.find_one_float("eta", ps.find_one_float("index", 1.5))
+            opacity = ps.find_one_rgb("opacity", [1, 1, 1])
+            m.sigma = float(np.mean(opacity))  # stored for completeness
+        elif kind == "substrate":
+            m.kind = MAT_SUBSTRATE
+            m.kd = ps.find_one_rgb("Kd", [0.5, 0.5, 0.5])
+            m.ks = ps.find_one_rgb("Ks", [0.5, 0.5, 0.5])
+            m.uroughness = ps.find_one_float("uroughness", 0.1)
+            m.vroughness = ps.find_one_float("vroughness", 0.1)
+        elif kind == "translucent":
+            m.kd = ps.find_one_rgb("Kd", [0.25, 0.25, 0.25])
+            m.ks = ps.find_one_rgb("Ks", [0.25, 0.25, 0.25])
+            m.kr = ps.find_one_rgb("reflect", [0.5, 0.5, 0.5])
+            m.kt = ps.find_one_rgb("transmit", [0.5, 0.5, 0.5])
+            m.roughness = ps.find_one_float("roughness", 0.1)
+        elif kind == "disney":
+            # (ref: materials/disney.cpp CreateDisneyMaterial defaults)
+            m.kd = ps.find_one_rgb("color", [0.5, 0.5, 0.5])
+            m.roughness = ps.find_one_float("roughness", 0.5)
+            m.eta = ps.find_one_float("eta", 1.5)
+            m.remap_roughness = False  # disney remaps rough->alpha itself
+            m.aux = np.array([
+                ps.find_one_float("metallic", 0.0),
+                ps.find_one_float("speculartint", 0.0),
+                ps.find_one_float("sheen", 0.0),
+                ps.find_one_float("sheentint", 0.5),
+                ps.find_one_float("clearcoat", 0.0),
+                ps.find_one_float("clearcoatgloss", 1.0),
+                ps.find_one_float("spectrans", 0.0),
+                ps.find_one_float("flatness", 0.0),
+            ], np.float32)
+            m.kt = np.sqrt(np.maximum(m.kd, 0.0))  # transmission tint
+        elif kind == "hair":
+            # (ref: materials/hair.cpp CreateHairMaterial) — sigma_a is
+            # stored in the kd slot; [beta_m, beta_n, alpha] ride in aux
+            beta_m = ps.find_one_float("beta_m", 0.3)
+            beta_n = ps.find_one_float("beta_n", 0.3)
+            sig_a = ps.find_one_rgb("sigma_a", None)
+            if sig_a is None:
+                color = ps.find_one_rgb("color", None)
+                if color is not None:
+                    c = np.asarray(color, np.float64)
+                    den = (5.969 - 0.215 * beta_n + 2.532 * beta_n ** 2
+                           - 10.73 * beta_n ** 3 + 5.574 * beta_n ** 4
+                           + 0.245 * beta_n ** 5)
+                    sig_a = (np.log(np.maximum(c, 1e-5)) / den) ** 2
+                else:
+                    eum = ps.find_one_float("eumelanin", 1.3)
+                    pheo = ps.find_one_float("pheomelanin", 0.0)
+                    sig_a = (eum * np.array([0.419, 0.697, 1.37])
+                             + pheo * np.array([0.187, 0.4, 1.05]))
+            m.kd = np.asarray(sig_a, np.float32).reshape(3)
+            m.eta = ps.find_one_float("eta", 1.55)
+            m.remap_roughness = False
+            m.aux = np.array([beta_m, beta_n,
+                              ps.find_one_float("alpha", 2.0),
+                              0, 0, 0, 0, 0], np.float32)
+        elif kind in ("subsurface", "kdsubsurface"):
+            # (ref: materials/subsurface.cpp, kdsubsurface.cpp +
+            # core/bssrdf.cpp SeparableBSSRDF).  The render path samples a
+            # true spatial BSSRDF: Fresnel entry, probe-ray exit-point
+            # sampling from a Burley normalized-diffusion radial profile
+            # (Christensen & Burley 2015 — the analytic stand-in for the
+            # reference's tabulated beam-diffusion profile), 3-axis/
+            # 3-channel MIS Pdf_Sp, and a (1-Fr)/c exit lobe
+            # (integrators/path.py BSSRDF block).  kd holds the profile
+            # albedo A (= dipole Rd for sigma-parameterized materials;
+            # Kd directly for kdsubsurface), sss_d the per-channel
+            # diffusion length.
+            m.kind = MAT_SUBSURFACE
+            m.eta = ps.find_one_float("eta", 1.33)
+            if kind == "subsurface":
+                scale = ps.find_one_float("scale", 1.0)
+                sa = np.asarray(ps.find_one_rgb(
+                    "sigma_a", [0.0011, 0.0024, 0.014])) * scale
+                ss = np.asarray(ps.find_one_rgb(
+                    "sigma_s", [2.55, 3.21, 3.77])) * scale
+                ap = ss / np.maximum(sa + ss, 1e-9)   # single-scatter albedo
+                A = (1.0 + _fdr(m.eta)) / max(1.0 - _fdr(m.eta), 1e-6)
+                s3 = np.sqrt(3.0 * np.maximum(1.0 - ap, 1e-9))
+                rd = 0.5 * ap * (1.0 + np.exp(-4.0 / 3.0 * A * s3)) \
+                    * np.exp(-s3)
+                m.kd = rd.astype(np.float32)
+                mfp = 1.0 / np.maximum(sa + ss, 1e-9)   # per-channel ell
+            else:
+                m.kd = ps.find_one_rgb("Kd", [0.5, 0.5, 0.5])
+                mfp = np.full(3, ps.find_one_float("mfp", 1.0))
+            # Burley similarity fit: s = 1.85 - A + 7|A - 0.8|^3;
+            # diffusion length d = ell / s
+            A_prof = np.asarray(m.kd, np.float64)
+            s_fit = 1.85 - A_prof + 7.0 * np.abs(A_prof - 0.8) ** 3
+            m.sss_d = (mfp / np.maximum(s_fit, 1e-6)).astype(np.float32)
+            m.kr = ps.find_one_rgb("Kr", [1, 1, 1])
+            m.ks = np.zeros(3, np.float32)
+            m.roughness = ps.find_one_float("roughness", 0.0)
+        elif kind == "mix":
+            # MixMaterial (ref: materials/mixmat.cpp): blends two named
+            # materials by 'amount'.  Wavefront re-design: blend in
+            # parameter space (exact when both BSDFs share lobe structure,
+            # an approximation otherwise).
+            amt = np.asarray(ps.find_one_rgb("amount", [0.5, 0.5, 0.5]))
+            n1 = ps.find_one_string("namedmaterial1", "")
+            n2 = ps.find_one_string("namedmaterial2", "")
+            i1 = self.scene.named_materials.get(n1, 0)
+            i2 = self.scene.named_materials.get(n2, 0)
+            m1, m2 = self.scene.materials[i1], self.scene.materials[i2]
+            a = float(np.mean(amt))
+            m.kind = m1.kind if a >= 0.5 else m2.kind
+            for f in ("kd", "ks", "kr", "kt", "metal_eta", "metal_k",
+                      "aux"):
+                v1, v2 = getattr(m1, f, None), getattr(m2, f, None)
+                if v1 is not None and v2 is not None:
+                    setattr(m, f, np.asarray(v1) * a
+                            + np.asarray(v2) * (1.0 - a))
+            for f in ("roughness", "uroughness", "vroughness", "eta",
+                      "sigma"):
+                setattr(m, f, getattr(m1, f) * a
+                        + getattr(m2, f) * (1.0 - a))
+            m.remap_roughness = m1.remap_roughness if a >= 0.5 \
+                else m2.remap_roughness
+        elif kind in ("none", "", "fourier"):
+            pass  # fourier params were fitted above
+        else:
+            m.kd = ps.find_one_rgb("Kd", [0.5, 0.5, 0.5])
+        if kind not in ("disney", "mix", "fourier", "hair"):
+            # disney remaps roughness itself (disney.cpp sqr(rough));
+            # mix/fourier set theirs above
+            m.remap_roughness = ps.find_one_bool("remaproughness", True)
+        for slot, pname in (("kd_tex", "Kd"), ("ks_tex", "Ks"),
+                            ("sigma_tex", "sigma"), ("rough_tex", "roughness"),
+                            ("bump_tex", "bumpmap")):
+            t = ps.find_texture_name(pname)
+            if t is not None:
+                setattr(m, slot, t)
+        self.scene.materials.append(m)
+        return len(self.scene.materials) - 1
+
+    def Texture(self, name, data_type, kind, ps: ParamSet):
+        self.scene.textures[name] = TextureRecord(
+            name=name,
+            kind=kind,
+            is_float=(data_type == "float"),
+            params=ps,
+            uscale=ps.find_one_float("uscale", 1.0),
+            vscale=ps.find_one_float("vscale", 1.0),
+        )
+
+    def LightSource(self, kind, ps: ParamSet):
+        sc = ps.find_one_rgb("scale", [1, 1, 1])
+        if kind == "point":
+            i = ps.find_one_rgb("I", [1, 1, 1]) * sc
+            p_local = ps.find_floats("from")
+            p_local = p_local if p_local is not None else np.zeros(3)
+            pos = xf.apply_point(self.ctm, p_local)
+            self.scene.lights.append(LightRecord(LIGHT_POINT, i, position=pos))
+        elif kind == "spot":
+            i = ps.find_one_rgb("I", [1, 1, 1]) * sc
+            frm = ps.find_floats("from")
+            to = ps.find_floats("to")
+            frm = frm if frm is not None else np.zeros(3)
+            to = to if to is not None else np.array([0, 0, 1.0])
+            pos = xf.apply_point(self.ctm, frm)
+            to_w = xf.apply_point(self.ctm, to)
+            d = to_w - pos
+            d = d / np.linalg.norm(d)
+            cone = ps.find_one_float("coneangle", 30.0)
+            delta = ps.find_one_float("conedeltaangle", 5.0)
+            self.scene.lights.append(
+                LightRecord(
+                    LIGHT_SPOT, i, position=pos, direction=d,
+                    cos_total=float(np.cos(np.deg2rad(cone))),
+                    cos_falloff=float(np.cos(np.deg2rad(cone - delta))),
+                )
+            )
+        elif kind == "distant":
+            L = ps.find_one_rgb("L", [1, 1, 1]) * sc
+            frm = ps.find_floats("from")
+            to = ps.find_floats("to")
+            frm = frm if frm is not None else np.zeros(3)
+            to = to if to is not None else np.array([0, 0, 1.0])
+            w = xf.apply_point(self.ctm, frm) - xf.apply_point(self.ctm, to)
+            w = w / np.linalg.norm(w)  # direction TOWARDS the light
+            self.scene.lights.append(LightRecord(LIGHT_DISTANT, L, direction=w))
+        elif kind == "infinite":
+            L = ps.find_one_rgb("L", [1, 1, 1]) * sc
+            mapname = ps.find_one_string("mapname", "")
+            if mapname and not os.path.isabs(mapname):
+                mapname = os.path.join(self.base_dir, mapname)
+            self.scene.lights.append(
+                LightRecord(LIGHT_INFINITE, L, map_name=mapname,
+                            to_world=self.ctm[:3, :3].copy())
+            )
+        elif kind in ("goniometric", "projection"):
+            # ref: src/lights/goniometric.cpp, projection.cpp — point
+            # lights whose intensity is modulated by an image map of the
+            # outgoing direction (angular lat-long map / projected
+            # texture inside a fov cone).
+            i = ps.find_one_rgb("I", [1, 1, 1]) * sc
+            frm = ps.find_floats("from")
+            frm = frm if frm is not None else np.zeros(3)
+            pos = xf.apply_point(self.ctm, frm)
+            mapname = ps.find_one_string("mapname", "")
+            if mapname and not os.path.isabs(mapname):
+                mapname = os.path.join(self.base_dir, mapname)
+            rot = np.asarray(self.ctm[:3, :3], np.float64)
+            # orthonormalize the rotation part (scene scale must not
+            # distort the direction mapping)
+            q, _ = np.linalg.qr(rot)
+            lkind = LIGHT_GONIO if kind == "goniometric" else LIGHT_PROJECTION
+            self.scene.lights.append(
+                LightRecord(lkind, i, position=pos, map_name=mapname,
+                            w2l=q.T.astype(np.float32),
+                            fov=ps.find_one_float("fov", 45.0)))
+        else:
+            import sys
+            log.warning(f"light '{kind}' not supported, skipping")
+
+    def AreaLightSource(self, kind, ps: ParamSet):
+        self.gs.area_light = ps
+
+    # ------------------------------------------------------------------
+    # shapes
+    def Shape(self, kind, ps: ParamSet):
+        if self.recording is not None:
+            self.objects[self.recording].append((kind, ps, self.ctm.copy(),
+                                                 self.gs.copy(),
+                                                 self.ctm_end.copy()))
+            return
+        self._emit_shape(kind, ps, self.ctm, self.gs,
+                         ctm_end=self.ctm_end)
+
+    def _emit_shape(self, kind, ps, ctm, gs, ctm_end=None):
+        sd = self.scene
+        light_id = -1
+        if gs.area_light is not None:
+            lp = gs.area_light
+            L = lp.find_one_rgb("L", [1, 1, 1]) * lp.find_one_rgb("scale", [1, 1, 1])
+            rec = LightRecord(LIGHT_AREA_TRI, L,
+                              two_sided=lp.find_one_bool("twosided", False))
+            sd.lights.append(rec)
+            light_id = len(sd.lights) - 1
+
+        if kind == "sphere" and light_id >= 0:
+            # analytic sphere emitter: cone-sampled like the reference
+            # (ref: src/shapes/sphere.cpp:Sample(ref))
+            radius = ps.find_one_float("radius", 1.0)
+            center = xf.apply_point(ctm, np.zeros(3))
+            s = float(np.linalg.norm(ctm[:3, 0]))
+            sd.spheres.append(
+                dict(center=center, radius=radius * s,
+                     mat=gs.material_index, light=light_id)
+            )
+            rec = sd.lights[light_id]
+            rec.kind = LIGHT_AREA_SPHERE
+            rec.sphere_index = len(sd.spheres) - 1
+            return
+
+        tri = shapelib.create_triangles(kind, ps, ctm, gs.reverse_orientation,
+                                        self.base_dir)
+        if tri is None:
+            return
+        p, n, uv = tri
+        # object motion blur: a differing end-time CTM makes this shape a
+        # TransformedPrimitive with AnimatedTransform semantics (ref:
+        # core/primitive.h TransformedPrimitive, transform.h:412
+        # Decompose/Interpolate): both CTMs are TRS-decomposed so the
+        # device build can evaluate ROTATION-CORRECT sub-keyframes
+        # (quaternion slerp) — a plain two-keyframe vertex lerp makes a
+        # spinning blade shrink instead of sweep (VERDICT r2 missing #4)
+        p_end = n_end = anim = None
+        if ctm_end is not None and not np.allclose(ctm_end, ctm):
+            tri_e = shapelib.create_triangles(kind, ps, ctm_end,
+                                              gs.reverse_orientation,
+                                              self.base_dir)
+            tri_o = shapelib.create_triangles(kind, ps, np.eye(4),
+                                              gs.reverse_orientation,
+                                              self.base_dir)
+            if tri_e is not None:
+                p_end, n_end, _ = tri_e
+            if tri_o is not None and tri_e is not None:
+                T0, q0, S0 = xf.decompose(ctm)
+                T1, q1, S1 = xf.decompose(ctm_end)
+                anim = dict(p_obj=tri_o[0].astype(np.float32),
+                            n_obj=(None if tri_o[1] is None
+                                   else tri_o[1].astype(np.float32)),
+                            T0=T0, q0=q0, S0=S0, T1=T1, q1=q1, S1=S1)
+        face = ps.find_ints("faceIndices")
+        if face is not None and face.shape[0] != p.shape[0]:
+            face = None  # mismatched count: ignore (triangle.cpp:683)
+        start = sd.add_triangles(p, n, uv, gs.material_index, light_id,
+                                 med_in=gs.medium_in, med_out=gs.medium_out,
+                                 p_end=p_end, n_end=n_end, face=face,
+                                 anim=anim)
+        if light_id >= 0:
+            sd.lights[light_id].tri_start = start
+            sd.lights[light_id].tri_count = p.shape[0]
+
+    # ------------------------------------------------------------------
+    # object instancing
+    def ObjectBegin(self, name):
+        self.AttributeBegin()
+        self.objects[name] = []
+        self.recording = name
+        self.record_base_ctm = self.ctm.copy()
+
+    def ObjectEnd(self):
+        self.recording = None
+        self.AttributeEnd()
+
+    def ObjectInstance(self, name):
+        if name not in self.objects:
+            return
+        base_inv = xf.inverse(self.record_base_ctm) if self.record_base_ctm is not None else xf.identity()
+        for kind, ps, shape_ctm, gs, shape_ctm_end in self.objects[name]:
+            final = self.ctm @ base_inv @ shape_ctm
+            final_end = self.ctm_end @ base_inv @ shape_ctm_end
+            self._emit_shape(kind, ps, final, gs, ctm_end=final_end)
+
+
+def load_scene(path: str) -> SceneDesc:
+    from . import parser as pbrt_parser
+
+    api = Api(base_dir=os.path.dirname(os.path.abspath(path)))
+    pbrt_parser.parse_file(path, api)
+    return api.scene
+
+
+def load_scene_string(text: str, base_dir: str = ".") -> SceneDesc:
+    from . import parser as pbrt_parser
+
+    api = Api(base_dir=base_dir)
+    pbrt_parser.parse_string(text, api, base_dir)
+    return api.scene

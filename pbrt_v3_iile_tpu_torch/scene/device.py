@@ -1,7 +1,7 @@
 """Device scene: every scene entity as flat tensors (port of ``scene/device.py``).
 
-``build_leaves`` runs the reference's host build (same BVH builder, same
-orderings, same tables) in numpy and returns the leaves under the
+``build_leaves`` runs the reference's host build (the port's copy of its
+BVH builder, same orderings, same tables) in numpy and returns the leaves under the
 reference's names; ``state.scene_from_numpy`` moves them to a device as
 a ``DeviceScene``.  The reference module imports jax at the top, so its
 numpy helpers are carried here as copies.
@@ -20,10 +20,9 @@ import os
 
 import numpy as np
 
-from pbrt_v3_iile_tpu.ops import bvh as bvhlib
-from pbrt_v3_iile_tpu.scene import api as apilib
-from pbrt_v3_iile_tpu.utils import log
-
+from ..ops import bvh as bvhlib
+from ..utils import log
+from . import api as apilib
 from . import textures as texlib
 from .state import DeviceScene, scene_from_numpy
 

@@ -15,7 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from pbrt_v3_iile_tpu.utils import log
+from ..utils import log
 
 TEX_CONST = 0
 TEX_SCALE = 1
@@ -49,7 +49,7 @@ class TextureTable:
 
 
 def _load_image_any(path: str) -> np.ndarray:
-    from pbrt_v3_iile_tpu.utils import image as imglib
+    from ..utils import image as imglib
 
     ext = path.rsplit(".", 1)[-1].lower()
     if ext == "pfm":

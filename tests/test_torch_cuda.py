@@ -3,8 +3,11 @@
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
 without one.  They import no jax, so on a machine without it they run
 with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
-Tolerances are those of tests/test_torch_intersect.py: prim ids equal on
->= 99.9% of rays, t within 1e-5 relative + 1e-6 absolute where they agree.
+The BVH kernel's tolerances are those of tests/test_torch_intersect.py:
+prim ids equal on >= 99.9% of rays, t within 1e-5 relative + 1e-6
+absolute where they agree.  The cluster kernel and its plain version do
+the same rounded operations in the same order, so they must agree
+exactly.
 """
 
 import os
@@ -22,7 +25,7 @@ PRIM_AGREE = 0.999
 def gpu_scene():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    from pbrt_v3_iile_tpu.scene import api as apilib
+    from pbrt_v3_iile_tpu_torch.scene import api as apilib
     from pbrt_v3_iile_tpu_torch.integrators import render as renderlib
     from pbrt_v3_iile_tpu_torch.ops import intersect as isect
     from pbrt_v3_iile_tpu_torch.ops import threefry
@@ -78,7 +81,11 @@ def test_bvh_kernel_matches_walker(gpu_scene, wave, any_hit):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("wave", ["primary", "bounce"])
-def test_cluster_kernel_matches_plain(gpu_scene, wave):
+@pytest.mark.parametrize("maxc", [192, 8])
+def test_cluster_kernel_matches_plain(gpu_scene, wave, maxc):
+    """K1 (cull, order and traversal in one kernel) against its plain
+    version on the card: n_cand per group identical, prim identical on
+    every ray, t bit-identical; any-hit validity identical."""
     from pbrt_v3_iile_tpu_torch.ops import clusters as cl
     from pbrt_v3_iile_tpu_torch.ops import clusters_kernel as k1
 
@@ -87,20 +94,26 @@ def test_cluster_kernel_matches_plain(gpu_scene, wave):
     key = torch.where(tm > 0, cl.sort_key6(o, d, scene.world_min,
                                            scene.world_max), 0x7FFFFFFF)
     perm = torch.sort(key, stable=True).indices
-    os_, ds_, ts_ = o[perm], d[perm], tm[perm].contiguous()
-    cand, cpk, ctn, ncand, _ = k1.candidate_tables(scene.clusters, os_, ds_, ts_)
-    rays = k1.ray_table(os_, ds_)
-    args = (scene.clusters.feat, cand, cpk, ctn, ncand, rays, ts_)
-    t, prim = k1.traverse_groups_cuda(*args)
-    tp, pp = k1.traverse_groups_plain(*args)
-    _agree(t, prim, tp, pp)
+    os_, ds_, ts_ = (x[perm].contiguous() for x in (o, d, tm))
+    maxc = k1.maxc_for(scene.clusters.feat.shape[0], maxc)
+    n0 = k1.LAUNCHES
+    t, prim, n_cand = k1.cluster_traverse_cuda(scene.clusters, os_, ds_, ts_, maxc)
+    torch.cuda.synchronize()
+    assert k1.LAUNCHES == n0 + 1
+    tp, pp, np_ = k1.cluster_traverse_plain(scene.clusters, os_, ds_, ts_, maxc)
+    assert torch.equal(n_cand, np_)
+    assert torch.equal(prim, pp)
+    assert torch.equal(t, tp)
+    _, pa, _ = k1.cluster_traverse_cuda(scene.clusters, os_, ds_, ts_, maxc,
+                                        any_hit=True)
+    assert torch.equal(pa >= 0, pp >= 0)
 
 
 @pytest.mark.cuda
 def test_cuda_render_matches_cpu_render(gpu_scene):
     """render() on the GPU (cluster kernel, BVH kernel on overflow) and on
     the CPU (plain walker) give the same image by test_golden's criterion."""
-    from pbrt_v3_iile_tpu.scene import api as apilib
+    from pbrt_v3_iile_tpu_torch.scene import api as apilib
     from pbrt_v3_iile_tpu_torch.integrators import render as renderlib
 
     sd = apilib.load_scene(ATRIUM)

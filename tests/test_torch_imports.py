@@ -1,5 +1,7 @@
-"""The port imports no jax: with ``sys.modules["jax"] = None`` every
-module of pbrt_v3_iile_tpu_torch imports, and a 4x4 render runs.
+"""The port imports neither jax nor the JAX package: with
+``sys.modules["jax"]`` and ``sys.modules["pbrt_v3_iile_tpu"]`` set to None
+every module of pbrt_v3_iile_tpu_torch imports, and a 4x4 scene parsed
+by the port's own ``scene/api.py`` renders.
 
 The check runs in a fresh interpreter, since the test process itself
 has jax loaded (tests/conftest.py).
@@ -14,11 +16,12 @@ from torch_parity import REPO
 SCRIPT = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any import of jax now raises
+sys.modules["pbrt_v3_iile_tpu"] = None   # ... and of the JAX package
 import pbrt_v3_iile_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-from pbrt_v3_iile_tpu.scene import api as apilib
+from pbrt_v3_iile_tpu_torch.scene import api as apilib
 from pbrt_v3_iile_tpu_torch.integrators import render
 sd = apilib.load_scene_string('''
     LookAt 0 1 -4  0 0.5 0  0 1 0
@@ -36,6 +39,8 @@ sd = apilib.load_scene_string('''
 img, stats = render.render(sd, spp=1, device="cpu")
 assert img.shape == (4, 4, 3) and (img >= 0).all() and img.mean() > 0
 assert not any(m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+               for m, v in sys.modules.items() if v is not None)
+assert not any(m == "pbrt_v3_iile_tpu" or m.startswith("pbrt_v3_iile_tpu.")
                for m, v in sys.modules.items() if v is not None)
 print("OK", len(names))
 """
