@@ -7,10 +7,15 @@ Phases (one line each):
   2. build both CUDA kernels from pbrt_v3_iile_tpu_torch/csrc, one nvcc
      each, in parallel, printing ptxas's registers, shared memory and
      spills per kernel;
-  3. build the device scene of scenes/atrium.pbrt on the GPU;
-  4. the BVH kernel (K2) against its plain version, the vectorized BVH
-     walker, on two 65,536-ray waves of the 512^2 film (primary rays and
-     one diffuse bounce from their hits), closest-hit and any-hit;
+  3. build the device scene of scenes/atrium.pbrt on the GPU (with the
+     BVH kernel's 4-wide nodes);
+  4. the BVH kernel (K2, 4-wide) against its plain version in its own
+     order (bvh_traverse_wide_plain: t, prim and barycentrics identical on
+     every ray) and against the binary BVH walker of the CPU path (prims
+     on >= 99.9%, t and barycentrics within the tolerances below, with the
+     rays that differ counted), on two 65,536-ray waves of the 512^2 film
+     (primary rays and one diffuse bounce from their hits), closest-hit,
+     and on the bounce and a shadow wave, any-hit;
   5. the cluster kernel (K1: cull, candidate order and traversal in one
      kernel) against its plain version (the torch cull, candidate tables
      and a dense evaluation) on the same waves: n_cand per group, prim on
@@ -18,19 +23,21 @@ Phases (one line each):
      traversal against K2; then with 8-candidate lists: K1 against its
      plain version, and the whole traversal with cluster_maxc=8 so that
      the overflow groups go through K2;
-  6. the main path through render(): atrium 128^2, 64 spp, seed 3, the
-     default CUDA config (clusters), plain and compacted, each held
-     against the reference C++ renderer's image with the atrium-path
-     tolerances of tests/test_oracle_parity.py; then one pass with
-     cluster_maxc=8 (the forced overflow path).  Kernel launch counts and
-     the calls of the torch cull (per_ray_cull, which must make none) are
-     read around exactly this phase;
-  7. timing (printed, no threshold): each kernel, its plain version and
+  6. the main paths through render(): atrium 128^2, 64 spp, seed 3, the
+     default CUDA config (clusters), plain and compacted, then compacted
+     with accel="bvh", each held against the reference C++ renderer's
+     image with the atrium-path tolerances of tests/test_oracle_parity.py;
+     with clusters also one pass with cluster_maxc=8 (the forced overflow
+     path).  Kernel launch counts and the calls of the torch cull
+     (per_ray_cull, which must make none) are read around each path: the
+     clusters path must launch both kernels, the bvh path K2 and not K1;
+  7. timing (printed, no threshold): each kernel, its plain versions and
      the torch candidate tables K1 no longer needs, at the main-path
-     shapes, with each kernel's bound computed from this run's inputs;
-     the atrium 512^2 depth-5 compacted pass as bench.py configures it,
-     in Mrays/s counted as path.py counts rays, its kernel launches per
-     pass, and one profiled pass: device-busy ms and idle share.
+     shapes, by CUDA events, with each kernel's bound computed from this
+     run's inputs; K2 at every wave of a bvh pass; the atrium 512^2 depth-5 compacted
+     pass as bench.py configures it, with each accel, passes in turns, in
+     Mrays/s counted as path.py counts rays, the kernel launches per pass,
+     and one profiled pass each: device-busy ms and idle share.
 Prints the kernel JSON line, the device line, and as its last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero with no result.
 Long output (the profiler table) goes to chiprun_out/.
@@ -202,6 +209,7 @@ def main():
     torch.cuda.synchronize()
     line("scene", seconds=time.time() - t0, triangles=scene.tri_p0.shape[0],
          nodes=scene.nodes_packed.shape[0],
+         wide_nodes=scene.bvh4_nodes.shape[0], stack_bound=scene.bvh4_stack,
          clusters=scene.clusters.feat.shape[0])
 
     # ---- 4. K2 vs the plain walker ----
@@ -226,25 +234,54 @@ def main():
     tm_s = torch.where(hp.valid, vm.length(lamp[None, :] - o_s) * 0.999, -1.0)
     waves = {"primary": (o_p, d_p, big), "bounce": (o_b, d_b, tm_b)}
 
+    def k2(o, d, tm, any_hit=False):
+        return K2.bvh_traverse_cuda(scene.bvh4_nodes, scene.bvh4_stack,
+                                    scene.tris_packed, o, d, tm, any_hit=any_hit)
+
+    def k2_plain(o, d, tm, any_hit=False):
+        return K2.bvh_traverse_wide_plain(scene.bvh4_nodes, scene.tris_packed,
+                                          o, d, tm, any_hit=any_hit)
+
     k2_err = 0.0
-    for wname, (o, d, tm) in waves.items():
-        ref = isect.intersect_bvh(scene, o, d, tm)
-        t, prim, b1, b2 = K2.bvh_traverse_cuda(scene.nodes_packed,
-                                               scene.tris_packed, o, d, tm)
+    k2_mismatch = {}
+    for wname, (o, d, tm), any_hit in (
+            ("primary", waves["primary"], False),
+            ("bounce", waves["bounce"], False),
+            ("bounce", waves["bounce"], True),
+            ("shadow", (o_s, d_s, tm_s), True)):
+        tag = f"{wname}{'_anyhit' if any_hit else ''}"
+        got = k2(o, d, tm, any_hit)
         torch.cuda.synchronize()
-        r = compare_hits(f"K2_vs_plain_{wname}", t, prim, ref.t, ref.prim,
-                         b1, b2, ref.b1, ref.b2)
-        k2_err = max(k2_err, r["t_max_abs"])
-    for wname, (o, d, tm) in (("bounce", waves["bounce"]),
-                              ("shadow", (o_s, d_s, tm_s))):
-        ref = isect.intersect_bvh(scene, o, d, tm, any_hit=True)
-        _, prim, _, _ = K2.bvh_traverse_cuda(scene.nodes_packed,
-                                             scene.tris_packed, o, d, tm,
-                                             any_hit=True)
-        va, vb = (prim >= 0).cpu().numpy(), ref.valid.cpu().numpy()
-        frac = float((va == vb).mean())
-        line(f"K2_anyhit_vs_plain_{wname}", agree=frac, occluded=int(vb.sum()))
-        check(frac >= PRIM_AGREE, f"K2 any-hit {wname}: agreement {frac}")
+        # the kernel and its plain version do the same rounded operations
+        # in the same order: every output must agree bit for bit
+        want = k2_plain(o, d, tm, any_hit)
+        same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+        t_abs = float((got[0] - want[0]).abs().max())
+        line(f"K2_vs_wide_plain_{tag}", t_prim_b1_b2_identical=same,
+             t_max_abs=t_abs, hits=int((got[1] >= 0).sum()))
+        check(all(same), f"K2 {tag}: differs from bvh_traverse_wide_plain")
+        k2_err = max(k2_err, t_abs)
+        # against the binary walker of the CPU path: the same hits but for
+        # exact ties in t (the kernel keeps the smaller prim id) and a t
+        # that rounds below its box's tnear (the cull then depends on the
+        # visiting order)
+        ref = isect.intersect_bvh(scene, o, d, tm, any_hit=any_hit)
+        if any_hit:
+            va, vb = (got[1] >= 0).cpu().numpy(), ref.valid.cpu().numpy()
+            frac = float((va == vb).mean())
+            line(f"K2_anyhit_vs_walker_{wname}", agree=frac,
+                 validity_differs=int((va != vb).sum()), occluded=int(vb.sum()))
+            check(frac >= PRIM_AGREE, f"K2 any-hit {wname}: agreement {frac}")
+            continue
+        compare_hits(f"K2_vs_walker_{wname}", got[0], got[1], ref.t, ref.prim,
+                     got[2], got[3], ref.b1, ref.b2)
+        dp = got[1] != ref.prim
+        dt = got[0] != ref.t
+        k2_mismatch[wname] = dict(
+            rays=int(o.shape[0]), prim_differs=int(dp.sum()),
+            t_differs=int(dt.sum()), tie_in_t=int((dp & ~dt).sum()),
+            smaller_prim_on_tie=int((dp & ~dt & (got[1] < ref.prim)).sum()))
+        line(f"K2_vs_walker_{wname}_differing", **k2_mismatch[wname])
 
     # ---- 5. K1 vs its plain version, and vs K2 ----
     cp = scene.clusters
@@ -330,7 +367,67 @@ def main():
     check(launches["bvh_traverse"] > 0, "K2 never launched on the main path")
     check(cull_calls == 0, f"the main path called the torch cull {cull_calls} times")
 
+    # the bvh accel's path: K2 carries every traversal
+    K1.LAUNCHES = 0
+    K2.LAUNCHES = 0
+    cllib.CALLS = 0
+    t0 = time.time()
+    img, st = renderlib.render(sd128, spp=64, seed=3, compact=True, device=dev,
+                               accel="bvh")
+    torch.cuda.synchronize()
+    launches_bvh = {"cluster_traverse": K1.LAUNCHES,
+                    "bvh_traverse": K2.LAUNCHES}
+    oracle_check("render128_compact_bvh", img)
+    line("render128_compact_bvh_stats", **st)
+    line("main_path_bvh", seconds=time.time() - t0, launches=launches_bvh,
+         per_ray_cull_calls=cllib.CALLS)
+    check(launches_bvh["bvh_traverse"] > 0, "K2 never launched on the bvh path")
+    check(launches_bvh["cluster_traverse"] == 0, "K1 launched on the bvh path")
+    check(cllib.CALLS == 0, "the bvh path called the torch cull")
+
     # ---- 7. timing, bounds ----
+    # the timed passes come first: a profiler session leaves tracing
+    # overhead on the launches that follow it
+    def pass_fn(accel):
+        cfg = renderlib.make_integrator_config(sd, accel=accel, device=dev)
+        cfg = cfg.replace(max_depth=5, compact_schedule=renderlib.COMPACT_SCHEDULE)
+        return renderlib.render_pass_fn(sd, cfg, dev)
+
+    key = threefry.prng_key(0)
+    runs = {"clusters": pass_fn("clusters"), "bvh": pass_fn("bvh")}
+    for run in runs.values():
+        L, _, _ = run(scene, cam, key, 0)
+        float(L.sum())                                 # warmup pass
+
+    # the pass with each accel, in turns
+    n_pass = 4
+    res = {a: dict(times=[], rays=[], checksums=[], k1=0, k2=0) for a in runs}
+    for p in range(1, n_pass + 1):
+        for accel, run in runs.items():
+            a1, a2 = K1.LAUNCHES, K2.LAUNCHES
+            torch.cuda.synchronize()
+            t0 = time.time()
+            L, _, aux = run(scene, cam, key, p)
+            checksum = float(L.sum())                  # data-dependent sync
+            r = res[accel]
+            r["times"].append(time.time() - t0)
+            r["rays"].append(int(aux["rays"]))
+            r["checksums"].append(checksum)
+            r["k1"] += K1.LAUNCHES - a1
+            r["k2"] += K2.LAUNCHES - a2
+            check(np.isfinite(checksum), f"non-finite 512^2 {accel} pass")
+    per_pass = {a: {"cluster_traverse": r["k1"] / n_pass,
+                    "bvh_traverse": r["k2"] / n_pass} for a, r in res.items()}
+    for accel, r in res.items():
+        mrays = [n / t / 1e6 for n, t in zip(r["rays"], r["times"])]
+        line(f"atrium512_depth5_compact_{accel}", pass_seconds=r["times"],
+             rays=r["rays"], mrays_per_s=mrays,
+             mrays_per_s_total=sum(r["rays"]) / sum(r["times"]) / 1e6,
+             launches_per_pass=per_pass[accel], checksums=r["checksums"],
+             power=smi)
+    check(per_pass["bvh"]["cluster_traverse"] == 0, "K1 launched in a bvh pass")
+    check(per_pass["bvh"]["bvh_traverse"] > 0, "K2 never launched in a bvh pass")
+
     os_, ds_, ts_ = sorted_waves["bounce"]
     o, d, tm = waves["bounce"]
     l1, l2 = K1.LAUNCHES, K2.LAUNCHES
@@ -343,9 +440,9 @@ def main():
             cp, os_, ds_, ts_, maxc), 2),
         "candidate_tables": cuda_ms(lambda: K1.candidate_tables(
             cp, os_, ds_, ts_, maxc), 5),
-        "bvh_traverse": cuda_ms(lambda: K2.bvh_traverse_cuda(
-            scene.nodes_packed, scene.tris_packed, o, d, tm), 20),
-        "bvh_plain": cuda_ms(lambda: isect.intersect_bvh(scene, o, d, tm), 2),
+        "bvh_traverse": cuda_ms(lambda: k2(o, d, tm), 20),
+        "bvh_wide_plain": cuda_ms(lambda: k2_plain(o, d, tm), 2),
+        "bvh_walker": cuda_ms(lambda: isect.intersect_bvh(scene, o, d, tm), 2),
     }
     line("kernel_ms_bounce_wave_65536", **ms)
 
@@ -370,66 +467,70 @@ def main():
          candidates_needed=int(need.sum()), candidates_listed=int(ncand.sum()),
          triangles_needed=k1_tris, gflop=k1_ops / 1e9, mbytes=k1_bytes / 1e6,
          bound_ms=k1_bound, bound_by=k1_by)
-    work = {}
+    # K2's bound keeps the binary walker's yardstick (its node visits and
+    # triangle tests, the binary BVH's bytes), whatever the kernel walks
+    work, wide_work = {}, {}
     isect.intersect_bvh(scene, o, d, tm, work=work)
+    K2.bvh_traverse_wide_plain(scene.bvh4_nodes, scene.tris_packed, o, d, tm,
+                               work=wide_work)
     k2_ops = work["nodes"] * NODE_OPS + work["tris"] * MOLLER_OPS
     k2_bytes = (scene.nodes_packed.nbytes + scene.tris_packed.nbytes
                 + o.shape[0] * (28 + 16))
     k2_bound, k2_by = bound(k2_ops, k2_bytes)
     line("K2_bound_bounce", node_visits=work["nodes"], triangle_tests=work["tris"],
          gflop=k2_ops / 1e9, mbytes=k2_bytes / 1e6, bound_ms=k2_bound,
-         bound_by=k2_by)
-    K1.LAUNCHES, K2.LAUNCHES = l1, l2  # timing launches are not main-path ones
+         bound_by=k2_by, wide_node_visits=wide_work["nodes"],
+         wide_triangle_tests=wide_work["tris"], wide_stack_max=wide_work["stack"])
 
-    cfg = renderlib.make_integrator_config(sd, device=dev)
-    cfg = cfg.replace(max_depth=5, compact_schedule=renderlib.COMPACT_SCHEDULE)
-    run = renderlib.render_pass_fn(sd, cfg, dev)
-    key = threefry.prng_key(0)
-    L, _, aux = run(scene, cam, key, 0)
-    float(L.sum())                                     # warmup pass
-    times, rays_n = [], []
-    l1, l2 = K1.LAUNCHES, K2.LAUNCHES
-    n_pass = 4
-    for p in range(1, n_pass + 1):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        L, _, aux = run(scene, cam, key, p)
-        checksum = float(L.sum())                      # data-dependent sync
-        times.append(time.time() - t0)
-        rays_n.append(int(aux["rays"]))
-        check(np.isfinite(checksum), "non-finite 512^2 pass")
-    per_pass = {"cluster_traverse": (K1.LAUNCHES - l1) / n_pass,
-                "bvh_traverse": (K2.LAUNCHES - l2) / n_pass}
-    mrays = [r / t / 1e6 for r, t in zip(rays_n, times)]
-    line("atrium512_depth5_compact", pass_seconds=times, rays=rays_n,
-         mrays_per_s=mrays, mrays_per_s_total=sum(rays_n) / sum(times) / 1e6,
-         launches_per_pass=per_pass, power=smi)
+    # K2 at every wave of one bvh pass: its inputs recorded, then timed
+    recorded = []
+    direct = K2.intersect_bvh_kernel
+
+    def recording(scene_, o_, d_, tm_, any_hit=False):
+        recorded.append((o_.clone(), d_.clone(), tm_.clone(), any_hit))
+        return direct(scene_, o_, d_, tm_, any_hit=any_hit)
+
+    K2.intersect_bvh_kernel = recording
+    try:
+        L, _, _ = runs["bvh"](scene, cam, key, 0)
+        float(L.sum())
+    finally:
+        K2.intersect_bvh_kernel = direct
+    per_wave = [dict(rays=int(w[0].shape[0]), live=int((w[2] > 0).sum()),
+                     any_hit=w[3],
+                     ms=cuda_ms(lambda w=w: k2(*w), 10))
+                for w in recorded]
+    line("K2_per_wave_bvh_pass", waves=per_wave,
+         sum_ms=sum(w["ms"] for w in per_wave), power=smi)
+    K1.LAUNCHES, K2.LAUNCHES = l1, l2  # timing launches are not main-path ones
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.time()
-        L, _, _ = run(scene, cam, key, n_pass + 1)
-        float(L.sum())
-        prof_s = time.time() - t0
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-    with open(os.path.join(OUT_DIR, "profile_atrium512.txt"), "w") as f:
-        f.write(table)
-    # device-busy time: the rows of device events (kernels, copies) only;
-    # an operator's row repeats the time of the kernels it launched
-    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in evs)
-    check(dev_us > 0, "the profiler saw no device time")
-    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
-    median_s = float(np.median(times))
-    line("profile_atrium512_pass", device_busy_ms=dev_us / 1e3,
-         device_events=sum(e.count for e in evs),
-         profiled_pass_ms=prof_s * 1e3, median_pass_ms=median_s * 1e3,
-         idle_share=1.0 - dev_us / 1e6 / median_s,
-         idle_share_profiled=1.0 - dev_us / 1e6 / prof_s,
-         top=[(e.key[:60], e.count, round(e.self_device_time_total / 1e3, 3))
-              for e in top], power=smi)
+    for accel, run in runs.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            L, _, _ = run(scene, cam, key, n_pass + 1)
+            float(L.sum())
+            prof_s = time.time() - t0
+        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+        with open(os.path.join(OUT_DIR, f"profile_atrium512_{accel}.txt"), "w") as f:
+            f.write(table)
+        # device-busy time: the rows of device events (kernels, copies) only;
+        # an operator's row repeats the time of the kernels it launched
+        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        dev_us = sum(e.self_device_time_total for e in evs)
+        check(dev_us > 0, "the profiler saw no device time")
+        top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
+        median_s = float(np.median(res[accel]["times"]))
+        line(f"profile_atrium512_pass_{accel}", device_busy_ms=dev_us / 1e3,
+             device_events=sum(e.count for e in evs),
+             profiled_pass_ms=prof_s * 1e3, median_pass_ms=median_s * 1e3,
+             idle_share=1.0 - dev_us / 1e6 / median_s,
+             idle_share_profiled=1.0 - dev_us / 1e6 / prof_s,
+             top=[(e.key[:60], e.count, round(e.self_device_time_total / 1e3, 3))
+                  for e in top], power=smi)
 
     kernels = [
         dict(name="cluster_traverse", route="cuda",
@@ -438,14 +539,17 @@ def main():
              launches=launches["cluster_traverse"], max_abs_err=k1_err,
              ms=ms["cluster_traverse"], plain_ms=ms["cluster_plain"],
              bound_ms=k1_bound, bound_by=k1_by, library_ms=None,
-             launches_per_pass=per_pass["cluster_traverse"]),
+             launches_per_pass=per_pass["clusters"]["cluster_traverse"],
+             launches_per_pass_bvh=per_pass["bvh"]["cluster_traverse"]),
         dict(name="bvh_traverse", route="cuda",
              source="pbrt_v3_iile_tpu_torch/csrc/bvh_traverse.cu",
              replaces="pbrt_v3_iile_tpu/ops/intersect_pallas.py:301",
-             launches=launches["bvh_traverse"], max_abs_err=k2_err,
-             ms=ms["bvh_traverse"], plain_ms=ms["bvh_plain"],
+             launches=launches_bvh["bvh_traverse"], max_abs_err=k2_err,
+             ms=ms["bvh_traverse"], plain_ms=ms["bvh_wide_plain"],
              bound_ms=k2_bound, bound_by=k2_by, library_ms=None,
-             launches_per_pass=per_pass["bvh_traverse"]),
+             launches_per_pass=per_pass["clusters"]["bvh_traverse"],
+             launches_per_pass_bvh=per_pass["bvh"]["bvh_traverse"],
+             launches_clusters_path=launches["bvh_traverse"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

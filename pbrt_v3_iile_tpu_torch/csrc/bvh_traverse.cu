@@ -1,158 +1,457 @@
 // BVH traversal kernel (K2) for Hopper: closest-hit or any-hit of each ray
-// against the whole triangle BVH in LinearBVHNode layout.
+// against the triangle BVH, walked as a 4-wide BVH.
 //
-// Replaces the TPU packet kernel pbrt_v3_iile_tpu/ops/intersect_pallas.py
-// (_traverse_kernel + _traverse_packet, launched by intersect_bvh_pallas),
-// which walks 1024-ray packets with one shared scalar stack.  This kernel
-// follows the per-ray semantics of the reference's XLA walker instead
-// (pbrt_v3_iile_tpu/ops/intersect.py::intersect_bvh), which the CPU tests
-// use: slab test against [0, t] with tfar *= 1.0000004, near child by the
-// ray's own direction sign, a depth-64 stack whose push is clamped at the
-// top slot, up to 4 triangles per leaf, Moller-Trumbore with a 1e-12
-// determinant threshold, T_MIN = 0, and any-hit stopping at the first hit.
+// Replaces the TPU packet kernel pbrt_v3_iile_tpu/ops/intersect_pallas.py:171
+// (_traverse_kernel + _traverse_packet, pallas_call at :301, wrapper
+// intersect_bvh_pallas), which walks 1024-ray packets with one shared
+// scalar stack because the TPU has no vector gather.  The contract is the
+// reference walker's (pbrt_v3_iile_tpu/ops/intersect.py::intersect_bvh):
+// slab tests against [0, t] with tfar *= 1.0000004, up to 4 triangles a
+// leaf, Moller-Trumbore with a 1e-12 determinant threshold, an exact
+// divide and 0 < t' < t, BVH-order prim ids.  The order is the 4-wide one
+// of ops/intersect_kernel.py (its module docstring; its plain version
+// bvh_traverse_wide_plain does the same rounded operations, so the two
+// agree bit for bit):
+//   step   test the 4 child boxes of one wide node against [0, t]; test the
+//          triangles of the hit leaf children; of the hit inner children
+//          with tnear < t, take the nearest by (tnear, slot) next and push
+//          the others far first, each with its tnear;
+//   pop    with no child to take, pop until an entry's tnear is below t;
+//   best   the least (t, prim): an exact tie in t goes to the smaller prim
+//          id, so the order of a step's triangle tests does not matter;
+//   any    any-hit stops after the first step that finds a hit.
 //
-// Design: one thread per ray, the stack in local memory (L1-resident),
-// nodes read as two 16-byte loads from nodes_packed (M,8) i32 (float
-// bounds bit-cast back), triangles as three 16-byte loads from
-// tris_packed (T,12) f32.  What bounds it on the H100: the dependent
-// node-fetch latency of divergent rays (each step is one 32-byte node and
-// at most four 48-byte triangles, far below both the FLOP and the HBM
-// peaks; the 95k-node atrium BVH, 3 MB, and its 4.8 MB of triangles stay
-// in the 50 MB L2).  This first version does nothing about that latency
-// beyond keeping every read a coalesced-width vector load; ray
-// reordering and wide (8-ary) nodes are later work.
+// Bound on the H100 (PERF.md, chip_smoke.py): on the 65,536-ray atrium
+// bounce wave the binary walker's work is ~2.2 M node visits (26 ops) and
+// ~0.15 M triangle tests (53 ops), 0.065 G ops, against 10.7 MB of BVH,
+// triangles and rays: bound by bytes, at ~3.2 us.  What holds a traversal
+// far from that is the chain of dependent steps of the slowest rays of
+// each warp.  What the design does about the four causes that held the
+// first version (one thread a ray over the binary nodes, kept as
+// tools/bvh_traverse_binary.cu to time against):
+//   1. too few warps to hide the latency, and a warp's steps made long by
+//      its lanes' serial triangle tests (up to 16 a step, one dependent
+//      L2 round trip each, while the other lanes idled): here each step's
+//      triangle tests are spread over the whole warp (each lane lists its
+//      tests in shared memory and every lane takes the next 32 of the
+//      warp's list); each ray's best (t, prim) is one 64-bit key, reduced
+//      by a shared-memory atomicMin, so a step costs one round of loads
+//      for all its triangles;
+//   2. binary nodes: here a node is one 128-byte line of 4 child boxes
+//      (SoA) and the 4 children (inner index, or a leaf's first prim and
+//      count), collapsed on the host (build_bvh4_np) with the binary boxes
+//      bit for bit; a ray makes about a quarter of the binary walker's
+//      node visits;
+//   3. the 64-deep stack lived in local memory and a popped node was
+//      fetched again only to be culled: here each entry carries its tnear
+//      and is dropped at the pop without a fetch, and each thread keeps
+//      its top kShort entries in shared memory ([entry][thread], no bank
+//      conflicts whatever the depths), as a ring that spills its oldest
+//      entries to a per-thread global region only past kShort (the build
+//      bounds the depth: 30 on atrium, 13 seen);
+//   4. a warp ran until its longest ray ended, with no work for the lanes
+//      whose rays were done: here the grid is persistent (the blocks the
+//      SMs hold at once) and a warp whose idle lanes reach kRefillMin (or
+//      all 32) takes that many consecutive rays from a device counter, so
+//      lanes are refilled until the wave is exhausted; rays with
+//      t_max <= 0 are written as misses at once (they can hit nothing).
+//      The two counters live in a workspace the host zeroes once; the
+//      last block to finish zeroes them again, so a launch costs the host
+//      no memset.
+// The top of the tree is NOT kept in shared memory: tools/k2_variants.py
+// times this kernel against variants made from this source (the first 64
+// or 256 wide nodes copied to shared memory with cp.async, an 8-wide BVH,
+// other refill thresholds, a grid of half the resident blocks) and
+// against the binary kernel it replaced; PERF.md has the readings.
 //
-// Built with --fmad=false so each product and sum rounds as in the
-// reference walker.
+// Built with --fmad=false so each product and sum rounds as in the plain
+// PyTorch versions.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kStackDepth = 64;
-constexpr int kMaxLeaf = 4;
+constexpr int kWidth = 4;        // children per wide node (WIDTH of the host)
+constexpr int kThreads = 256;    // 8 warps a block
+constexpr int kWarps = kThreads / 32;
+constexpr int kMinBlocks = 3;    // blocks an SM: caps registers at 85
+constexpr int kShort = 16;       // stack entries a thread keeps in shared memory
+constexpr int kNodeF4 = 2 * kWidth;       // float4 per wide node (32 W bytes)
+constexpr int kLoadF4 = 7 * kWidth / 4;   // of which boxes and children
+constexpr int kTests = 32 * 4 * kWidth;   // triangle tests a warp step holds
+                                          // (build_bvh4_np caps a leaf at 4)
+constexpr int kRefillMin = 8;    // idle lanes that make a warp fetch rays
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float dot3(float ax, float ay, float az,
-                                      float bx, float by, float bz) {
+// Per warp, in shared memory: the step's triangle tests and, per lane, its
+// ray, its best (t, prim) as one key and the barycentrics of that best.
+struct WarpTests {
+  int list[kTests];                 // (prim << 5) | owner lane
+  unsigned long long key[32];       // (bits of t) << 32 | prim: the order
+  float4 ray_o[32];                 // o, t at the step's start
+  float4 ray_d[32];                 // d, prim at the step's start (bits)
+  float2 uv[32];
+};
+
+constexpr size_t kSmemBytes =
+    sizeof(int2) * kShort * kThreads + sizeof(WarpTests) * kWarps;
+
+static_assert((kShort & (kShort - 1)) == 0, "kShort must be a power of two");
+
+// Component c of v, for a c known at compile time.
+__device__ __forceinline__ float comp(const float4& v, int c) {
+  return c == 0 ? v.x : (c == 1 ? v.y : (c == 2 ? v.z : v.w));
+}
+
+__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
+                                      float by, float bz) {
   return ax * bx + ay * by + az * bz;
 }
 
-__global__ void bvh_traverse_kernel(const int4* __restrict__ nodes,
-                                    const float4* __restrict__ tris,
-                                    const float* __restrict__ o,
-                                    const float* __restrict__ d,
-                                    const float* __restrict__ t_max,
-                                    float* __restrict__ t_out,
-                                    int* __restrict__ prim_out,
-                                    float* __restrict__ b1_out,
-                                    float* __restrict__ b2_out,
-                                    int n, int any_hit) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
-  const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
-  const float inv_x = fabsf(dx) > 1e-12f ? 1.0f / dx : (dx >= 0.f ? 1e30f : -1e30f);
-  const float inv_y = fabsf(dy) > 1e-12f ? 1.0f / dy : (dy >= 0.f ? 1e30f : -1e30f);
-  const float inv_z = fabsf(dz) > 1e-12f ? 1.0f / dz : (dz >= 0.f ? 1e30f : -1e30f);
+// (t, prim) as one 64-bit key whose unsigned order is (t, prim)'s for t > 0.
+__device__ __forceinline__ unsigned long long hit_key(float t, int prim) {
+  return ((unsigned long long)__float_as_uint(t) << 32) | (unsigned)prim;
+}
 
-  float t = t_max[i];
-  int prim = -1;
-  float b1 = 0.f, b2 = 0.f;
-  int stack[kStackDepth];
-  int sp = 0;
-  int node = 0;
+// Moller-Trumbore of triangle pid against the ray (o, d): true when the ray
+// meets it at tt > 0, with (tt, u, v).
+__device__ __forceinline__ bool moller(const float4* __restrict__ tris,
+                                       int pid, float ox, float oy, float oz,
+                                       float dx, float dy, float dz,
+                                       float& tt, float& u, float& v) {
+  const float4 r0 = __ldg(tris + 3 * pid);
+  const float4 r1 = __ldg(tris + 3 * pid + 1);
+  const float4 r2 = __ldg(tris + 3 * pid + 2);
+  const float p0x = r0.x, p0y = r0.y, p0z = r0.z;
+  const float e1x = r0.w, e1y = r1.x, e1z = r1.y;
+  const float e2x = r1.z, e2y = r1.w, e2z = r2.x;
+  // pv = d x e2
+  const float pvx = dy * e2z - dz * e2y;
+  const float pvy = dz * e2x - dx * e2z;
+  const float pvz = dx * e2y - dy * e2x;
+  const float det = dot3(e1x, e1y, e1z, pvx, pvy, pvz);
+  const bool det_ok = fabsf(det) > 1e-12f;
+  const float inv = det_ok ? 1.0f / (det == 0.f ? 1.0f : det) : 0.f;
+  const float tvx = ox - p0x, tvy = oy - p0y, tvz = oz - p0z;
+  u = dot3(tvx, tvy, tvz, pvx, pvy, pvz) * inv;
+  // qv = tv x e1
+  const float qvx = tvy * e1z - tvz * e1y;
+  const float qvy = tvz * e1x - tvx * e1z;
+  const float qvz = tvx * e1y - tvy * e1x;
+  v = dot3(dx, dy, dz, qvx, qvy, qvz) * inv;
+  tt = dot3(e2x, e2y, e2z, qvx, qvy, qvz) * inv;
+  return det_ok && u >= 0.f && v >= 0.f && u + v <= 1.f && tt > 0.f;
+}
 
-  while (node >= 0) {
-    const int4 lo = nodes[2 * node];
-    const int4 hi = nodes[2 * node + 1];
-    const float tlo_x = (__int_as_float(lo.x) - ox) * inv_x;
-    const float tlo_y = (__int_as_float(lo.y) - oy) * inv_y;
-    const float tlo_z = (__int_as_float(lo.z) - oz) * inv_z;
-    const float thi_x = (__int_as_float(lo.w) - ox) * inv_x;
-    const float thi_y = (__int_as_float(hi.x) - oy) * inv_y;
-    const float thi_z = (__int_as_float(hi.y) - oz) * inv_z;
-    const int right = hi.z;
-    const int count = hi.w >> 2;
-    const int axis = hi.w & 3;
-    const float tnear = fmaxf(fmaxf(fminf(tlo_x, thi_x), fminf(tlo_y, thi_y)),
-                              fminf(tlo_z, thi_z));
-    float tfar = fminf(fminf(fmaxf(tlo_x, thi_x), fmaxf(tlo_y, thi_y)),
-                       fmaxf(tlo_z, thi_z));
-    tfar = tfar * 1.0000004f;
-    const bool box_hit = (tnear <= tfar) && (tnear < t) && (tfar > 0.f);
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+bvh4_traverse_kernel(const float4* __restrict__ wide,
+                     const float4* __restrict__ tris,
+                     const float* __restrict__ o, const float* __restrict__ d,
+                     const float* __restrict__ t_max,
+                     float* __restrict__ t_out, int* __restrict__ prim_out,
+                     float* __restrict__ b1_out, float* __restrict__ b2_out,
+                     int n, int any_hit, int* __restrict__ counters,
+                     int2* __restrict__ spill) {
+  // counters[0]: the next ray to hand out; counters[1]: blocks finished.
+  // Both are 0 at the launch, and the last block to finish zeroes them.
+  int* next_ray = counters;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int2* ring = reinterpret_cast<int2*>(smem);
+  WarpTests* tests = reinterpret_cast<WarpTests*>(ring + kShort * kThreads);
 
-    if (box_hit && count > 0) {
-      for (int k = 0; k < kMaxLeaf; ++k) {
-        if (k >= count) break;
-        const int pid = right + k;
-        const float4 r0 = tris[3 * pid];
-        const float4 r1 = tris[3 * pid + 1];
-        const float4 r2 = tris[3 * pid + 2];
-        const float p0x = r0.x, p0y = r0.y, p0z = r0.z;
-        const float e1x = r0.w, e1y = r1.x, e1z = r1.y;
-        const float e2x = r1.z, e2y = r1.w, e2z = r2.x;
-        // pv = d x e2
-        const float pvx = dy * e2z - dz * e2y;
-        const float pvy = dz * e2x - dx * e2z;
-        const float pvz = dx * e2y - dy * e2x;
-        const float det = dot3(e1x, e1y, e1z, pvx, pvy, pvz);
-        const bool det_ok = fabsf(det) > 1e-12f;
-        const float inv = det_ok ? 1.0f / (det == 0.f ? 1.0f : det) : 0.f;
-        const float tvx = ox - p0x, tvy = oy - p0y, tvz = oz - p0z;
-        const float u = dot3(tvx, tvy, tvz, pvx, pvy, pvz) * inv;
-        // qv = tv x e1
-        const float qvx = tvy * e1z - tvz * e1y;
-        const float qvy = tvz * e1x - tvx * e1z;
-        const float qvz = tvx * e1y - tvy * e1x;
-        const float v = dot3(dx, dy, dz, qvx, qvy, qvz) * inv;
-        const float tt = dot3(e2x, e2y, e2z, qvx, qvy, qvz) * inv;
-        if (det_ok && u >= 0.f && v >= 0.f && u + v <= 1.f && tt > 0.f &&
-            tt < t) {
-          t = tt;
-          prim = pid;
-          b1 = u;
-          b2 = v;
+  const int lane = threadIdx.x & 31;
+  WarpTests& wt = tests[threadIdx.x >> 5];
+  // stack entry s: in shared memory at my_ring[(s % kShort) * kThreads]
+  // while it is among the top kShort, else at my_spill[s * stride]
+  int2* my_ring = ring + threadIdx.x;
+  const size_t stride = (size_t)gridDim.x * kThreads;
+  int2* my_spill = spill + (size_t)blockIdx.x * kThreads + threadIdx.x;
+
+  int ray = -1;            // this lane's ray, -1 when idle
+  bool exhausted = false;  // warp-uniform: every ray has been handed out
+  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
+  float ix = 0.f, iy = 0.f, iz = 0.f;
+  float t = 0.f, b1 = 0.f, b2 = 0.f;
+  int prim = -1, node = 0, sp = 0, spilled = 0;
+
+  while (true) {
+    // ---- refill: the idle lanes take the next consecutive rays ----
+    const unsigned idle = __ballot_sync(kFull, ray < 0);
+    if (!exhausted && idle != 0u &&
+        (__popc(idle) >= kRefillMin || idle == kFull)) {
+      const int want = __popc(idle);
+      int base = 0;
+      if (lane == 0) base = atomicAdd(next_ray, want);
+      base = __shfl_sync(kFull, base, 0);
+      exhausted = base + want >= n;
+      const int r = base + __popc(idle & ((1u << lane) - 1u));
+      if (ray < 0 && r < n) {
+        const float tm = t_max[r];
+        if (tm > 0.f) {
+          ray = r;
+          ox = o[3 * r];
+          oy = o[3 * r + 1];
+          oz = o[3 * r + 2];
+          dx = d[3 * r];
+          dy = d[3 * r + 1];
+          dz = d[3 * r + 2];
+          ix = fabsf(dx) > 1e-12f ? 1.0f / dx : (dx >= 0.f ? 1e30f : -1e30f);
+          iy = fabsf(dy) > 1e-12f ? 1.0f / dy : (dy >= 0.f ? 1e30f : -1e30f);
+          iz = fabsf(dz) > 1e-12f ? 1.0f / dz : (dz >= 0.f ? 1e30f : -1e30f);
+          t = tm;
+          prim = -1;
+          b1 = 0.f;
+          b2 = 0.f;
+          node = 0;
+          sp = 0;
+          spilled = 0;
+        } else {  // 0 < t' < t_max is impossible: a miss
+          t_out[r] = tm;
+          prim_out[r] = -1;
+          b1_out[r] = 0.f;
+          b2_out[r] = 0.f;
         }
       }
     }
-
-    int next;
-    if (box_hit && count == 0) {
-      const bool neg = (axis == 0 ? dx : (axis == 1 ? dy : dz)) < 0.f;
-      const int first = node + 1;
-      const int push_sp = sp < kStackDepth - 1 ? sp : kStackDepth - 1;
-      stack[push_sp] = neg ? first : right;
-      sp = push_sp + 1;
-      next = neg ? right : first;
-    } else if (sp > 0) {
-      sp -= 1;
-      next = stack[sp];
-    } else {
-      next = -1;
+    if (__ballot_sync(kFull, ray >= 0) == 0u) {
+      if (exhausted) break;
+      continue;
     }
-    if (any_hit && prim >= 0) next = -1;
-    node = next;
+
+    // ---- one wide node: the child boxes against [0, t] ----
+    float tn[kWidth];
+    bool hit[kWidth];
+    int child[kWidth];
+#pragma unroll
+    for (int k = 0; k < kWidth; ++k) {
+      tn[k] = 0.f;
+      hit[k] = false;
+      child[k] = -1;
+    }
+    int n_tri = 0;
+    if (ray >= 0) {
+      // float f of the node: comp(q[f / 4], f % 4); block a of kWidth
+      // floats is min x, y, z, max x, y, z, then the children
+      float4 q[kLoadF4];
+      const float4* p = wide + (size_t)node * kNodeF4;
+#pragma unroll
+      for (int i = 0; i < kLoadF4; ++i) q[i] = __ldg(p + i);
+#define NODE_F(a, k) comp(q[((a) * kWidth + (k)) >> 2], ((a) * kWidth + (k)) & 3)
+#pragma unroll
+      for (int k = 0; k < kWidth; ++k) child[k] = __float_as_int(NODE_F(6, k));
+#pragma unroll
+      for (int k = 0; k < kWidth; ++k) {
+        const float tlo_x = (NODE_F(0, k) - ox) * ix;
+        const float tlo_y = (NODE_F(1, k) - oy) * iy;
+        const float tlo_z = (NODE_F(2, k) - oz) * iz;
+        const float thi_x = (NODE_F(3, k) - ox) * ix;
+        const float thi_y = (NODE_F(4, k) - oy) * iy;
+        const float thi_z = (NODE_F(5, k) - oz) * iz;
+        const float tnear =
+            fmaxf(fmaxf(fminf(tlo_x, thi_x), fminf(tlo_y, thi_y)),
+                  fminf(tlo_z, thi_z));
+        float tfar = fminf(fminf(fmaxf(tlo_x, thi_x), fmaxf(tlo_y, thi_y)),
+                           fmaxf(tlo_z, thi_z));
+        tfar = tfar * 1.0000004f;
+        tn[k] = tnear;
+        hit[k] = (tnear <= tfar) && (tnear < t) && (tfar > 0.f);
+        if (hit[k] && child[k] < 0) n_tri += (~child[k]) & 7;
+      }
+#undef NODE_F
+    }
+
+    // ---- the hit leaf children's triangles, spread over the warp: each
+    // lane lists its tests, every lane takes the next 32 of the warp's
+    // list, and the best (t, prim) of each ray is a shared atomicMin ----
+    int off = n_tri;  // inclusive prefix sum over the lanes
+#pragma unroll
+    for (int s = 1; s < 32; s <<= 1) {
+      const int v = __shfl_up_sync(kFull, off, s);
+      if (lane >= s) off += v;
+    }
+    const int total = __shfl_sync(kFull, off, 31);
+    if (total > 0) {
+      off -= n_tri;
+      __syncwarp();  // the last step's reads of wt are done
+      const unsigned long long key0 = hit_key(t, prim);
+      if (n_tri > 0) {
+        wt.ray_o[lane] = make_float4(ox, oy, oz, t);
+        wt.ray_d[lane] = make_float4(dx, dy, dz, __int_as_float(prim));
+        wt.key[lane] = key0;
+#pragma unroll
+        for (int k = 0; k < kWidth; ++k) {
+          if (hit[k] && child[k] < 0) {
+            const int code = ~child[k];
+            const int first = code >> 3;
+            for (int j = 0; j < (code & 7); ++j)
+              wt.list[off++] = ((first + j) << 5) | lane;
+          }
+        }
+      }
+      __syncwarp();
+      for (int g0 = 0; g0 < total; g0 += 32) {
+        bool pass = false;
+        unsigned long long kk = 0;
+        int own = 0;
+        float tt = 0.f, u = 0.f, v = 0.f;
+        if (g0 + lane < total) {
+          const int e = wt.list[g0 + lane];
+          const int pid = e >> 5;
+          own = e & 31;
+          const float4 ro = wt.ray_o[own];
+          const float4 rd = wt.ray_d[own];
+          // below the owner's (t, prim) at the step's start: a lower key
+          pass = moller(tris, pid, ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, tt, u,
+                        v) &&
+                 (tt < ro.w || (tt == ro.w && pid < __float_as_int(rd.w)));
+          if (pass) {
+            kk = hit_key(tt, pid);
+            atomicMin(&wt.key[own], kk);
+          }
+        }
+        __syncwarp();
+        if (pass && wt.key[own] == kk) wt.uv[own] = make_float2(u, v);
+        __syncwarp();
+      }
+      if (n_tri > 0) {
+        const unsigned long long kk = wt.key[lane];
+        if (kk != key0) {
+          t = __uint_as_float((unsigned)(kk >> 32));
+          prim = (int)(unsigned)(kk & 0xffffffffu);
+          const float2 uv = wt.uv[lane];
+          b1 = uv.x;
+          b2 = uv.y;
+        }
+      }
+    }
+    if (ray < 0) continue;
+
+    bool done = any_hit && prim >= 0;
+    if (!done) {
+      // the hit inner children nearer than t, ranked by (tnear, slot)
+      bool in[kWidth];
+#pragma unroll
+      for (int k = 0; k < kWidth; ++k)
+        in[k] = hit[k] && child[k] >= 0 && tn[k] < t;
+      int rank[kWidth];
+#pragma unroll
+      for (int k = 0; k < kWidth; ++k) {
+        rank[k] = 0;
+#pragma unroll
+        for (int j = 0; j < kWidth; ++j)
+          rank[k] += (j != k && in[j] &&
+                      (tn[j] < tn[k] || (tn[j] == tn[k] && j < k)))
+                         ? 1
+                         : 0;
+      }
+      int next = -1;
+#pragma unroll
+      for (int r = kWidth - 1; r >= 1; --r) {  // push far first
+#pragma unroll
+        for (int k = 0; k < kWidth; ++k) {
+          if (in[k] && rank[k] == r) {
+            if (sp - spilled == kShort) {  // the ring is full: spill its oldest
+              my_spill[(size_t)spilled * stride] =
+                  my_ring[(spilled & (kShort - 1)) * kThreads];
+              ++spilled;
+            }
+            my_ring[(sp & (kShort - 1)) * kThreads] =
+                make_int2(child[k], __float_as_int(tn[k]));
+            ++sp;
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kWidth; ++k)
+        if (in[k] && rank[k] == 0) next = child[k];
+      while (next < 0 && sp > 0) {  // pop; drop entries not nearer than t
+        --sp;
+        int2 e;
+        if (sp >= spilled) {
+          e = my_ring[(sp & (kShort - 1)) * kThreads];
+        } else {  // the ring is empty: the entry is in the spill region
+          e = my_spill[(size_t)sp * stride];
+          spilled = sp;
+        }
+        if (__int_as_float(e.y) < t) next = e.x;
+      }
+      if (next < 0) {
+        done = true;
+      } else {
+        node = next;
+      }
+    }
+    if (done) {
+      t_out[ray] = t;
+      prim_out[ray] = prim;
+      b1_out[ray] = b1;
+      b2_out[ray] = b2;
+      ray = -1;
+    }
   }
-  t_out[i] = t;
-  prim_out[i] = prim;
-  b1_out[i] = b1;
-  b2_out[i] = b2;
+  // every warp of the block is past its last atomicAdd on next_ray
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(counters + 1, 1) == (int)gridDim.x - 1) {
+      counters[0] = 0;
+      counters[1] = 0;
+    }
+  }
+}
+
+int g_max_blocks[64];  // per device: resident blocks of the kernel, 0 unknown
+
+// Resident blocks on the current device (the persistent grid), raising the
+// kernel's shared-memory limit on first use; a negative cudaError on failure.
+int max_blocks() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -(int)err;
+  if (dev < 64 && g_max_blocks[dev] > 0) return g_max_blocks[dev];
+  err = cudaFuncSetAttribute(bvh4_traverse_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kSmemBytes);
+  if (err != cudaSuccess) return -(int)err;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, bvh4_traverse_kernel, kThreads, kSmemBytes);
+  if (err != cudaSuccess) return -(int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return -(int)err;
+  if (per_sm <= 0) return -(int)cudaErrorInvalidConfiguration;
+  if (dev < 64) g_max_blocks[dev] = per_sm * sms;
+  return per_sm * sms;
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() of the launch.
-extern "C" int bvh_traverse(const void* nodes_packed, const void* tris_packed,
-                            const void* o, const void* d, const void* t_max,
-                            void* t_out, void* prim_out, void* b1_out,
-                            void* b2_out, int n, int any_hit, void* stream) {
+// The spill entries (int2) that stacks of `depth` entries need on the
+// current device: each thread of the persistent grid keeps kShort in
+// shared memory and spills the rest.  A negative cudaError on failure.
+extern "C" int bvh_traverse_spill_entries(int depth) {
+  const int b = max_blocks();
+  if (b <= 0) return b;
+  return depth > kShort ? (depth - kShort) * b * kThreads : 0;
+}
+
+// Launches the persistent grid on `stream`.  work: two ints that are 0
+// (the kernel leaves them 0), then bvh_traverse_spill_entries(depth)
+// int2 entries.  Returns the launch's CUDA error.
+extern "C" int bvh_traverse(const void* wide, const void* tris, const void* o,
+                            const void* d, const void* t_max, void* t_out,
+                            void* prim_out, void* b1_out, void* b2_out, int n,
+                            int any_hit, void* work, void* stream) {
   if (n <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  bvh_traverse_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int4*)nodes_packed, (const float4*)tris_packed, (const float*)o,
+  const int mb = max_blocks();
+  if (mb <= 0) return -mb;
+  const int want = (n + kThreads - 1) / kThreads;
+  const int grid = want < mb ? want : mb;
+  bvh4_traverse_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      (const float4*)wide, (const float4*)tris, (const float*)o,
       (const float*)d, (const float*)t_max, (float*)t_out, (int*)prim_out,
-      (float*)b1_out, (float*)b2_out, n, any_hit);
+      (float*)b1_out, (float*)b2_out, n, any_hit, (int*)work,
+      (int2*)work + 1);
   return (int)cudaGetLastError();
 }

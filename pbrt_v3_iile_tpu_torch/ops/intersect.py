@@ -48,6 +48,13 @@ def _cross3(a, b):
 
 def _moller(o, d, p0, e1, e2, t_cur):
     """Moller-Trumbore; returns (valid, t, u, v), all (N,)."""
+    ok, t, u, v = _moller_raw(o, d, p0, e1, e2)
+    return ok & (t < t_cur), t, u, v
+
+
+def _moller_raw(o, d, p0, e1, e2):
+    """Moller-Trumbore without the t_cur test: (ok, t, u, v), ok when the
+    ray meets the triangle at t > T_MIN."""
     pv = _cross3(d, e2)
     det = _dot3(e1, pv)
     ok = torch.abs(det) > 1e-12
@@ -58,7 +65,7 @@ def _moller(o, d, p0, e1, e2, t_cur):
     qv = _cross3(tv, e1)
     v = _dot3(d, qv) * inv
     t = _dot3(e2, qv) * inv
-    valid = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > T_MIN) & (t < t_cur)
+    valid = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > T_MIN)
     return valid, t, u, v
 
 

@@ -318,6 +318,8 @@ def build_leaves(sd, with_clusters: bool = False) -> dict:
     tris_packed[:, 0:3] = p[:, 0]
     tris_packed[:, 3:6] = e1
     tris_packed[:, 6:9] = e2
+    from ..ops.intersect_kernel import build_bvh4_np
+    bvh4_nodes, bvh4_stack = build_bvh4_np(nodes_packed)
 
     # ---- ray-cone texture filter inputs ----
     duv1 = uv[:, 1] - uv[:, 0]
@@ -339,8 +341,8 @@ def build_leaves(sd, with_clusters: bool = False) -> dict:
         node_min=flat.node_min, node_max=flat.node_max,
         node_right=flat.node_right, node_count=flat.node_count,
         node_axis=flat.node_axis, nodes_packed=nodes_packed,
-        tris_packed=tris_packed,
-        sph_center=sph_center, sph_radius=sph_radius, sph_mat=sph_mat,
+        tris_packed=tris_packed, bvh4_nodes=bvh4_nodes,
+        bvh4_stack=np.int32(bvh4_stack), sph_center=sph_center, sph_radius=sph_radius, sph_mat=sph_mat,
         sph_light=sph_light, n_spheres=np.int32(len(sd.spheres)),
         mat_kind=mk, mat_kd=kd, mat_ks=ks, mat_kr=kr, mat_kt=kt,
         mat_rough=rough, mat_urough=uro, mat_vrough=vro, mat_eta=eta,

@@ -19,7 +19,8 @@ import torch
 from .textures import TextureTable, table_from_numpy
 
 # scalar leaves kept as python numbers (read by the host, never synced)
-_INT_SCALARS = ("n_spheres", "n_lights", "has_env_map", "env_light_id")
+_INT_SCALARS = ("n_spheres", "n_lights", "has_env_map", "env_light_id",
+                "bvh4_stack")
 _FLOAT_SCALARS = ("world_radius", "tex_theta")
 
 
@@ -52,6 +53,10 @@ class DeviceScene:
     node_axis: torch.Tensor
     nodes_packed: torch.Tensor   # (M,8) i32: bits(min3), bits(max3), right, count<<2|axis
     tris_packed: torch.Tensor    # (T,12) f32: p0, e1, e2, pad
+    # the BVH kernel's 4-wide collapse of the same BVH (the port's own;
+    # ops/intersect_kernel.py::build_bvh4_np) and its deepest stack
+    bvh4_nodes: torch.Tensor     # (W,32) i32
+    bvh4_stack: int
     # analytic spheres (padded to >= 1)
     sph_center: torch.Tensor
     sph_radius: torch.Tensor

@@ -3,14 +3,18 @@
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
 without one.  They import no jax, so on a machine without it they run
 with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
-The BVH kernel's tolerances are those of tests/test_torch_intersect.py:
-prim ids equal on >= 99.9% of rays, t within 1e-5 relative + 1e-6
-absolute where they agree.  The cluster kernel and its plain version do
-the same rounded operations in the same order, so they must agree
-exactly.
+Each kernel and its own plain version (the BVH kernel's is
+``bvh_traverse_wide_plain``) do the same rounded operations in the same
+order, so they must agree exactly: every output of the BVH kernel, and
+the cluster kernel's n_cand, prim, t and any-hit validity.  The BVH kernel
+against the binary walker of the CPU path: prim ids equal on >= 99.9% of
+rays, t bit-equal where they agree, any-hit validity on >= 99.9%; the
+same on a soup with leaves of 6 and 10 triangles.  GPU
+renders against the CPU render: test_golden's criterion.
 """
 
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -49,34 +53,88 @@ def gpu_scene():
                        "bounce": (ob, db, tb)}
 
 
-def _agree(ta, pa, tb, pb):
-    pa, pb = pa.cpu().numpy(), pb.cpu().numpy()
-    ta, tb = ta.cpu().numpy(), tb.cpu().numpy()
-    same = pa == pb
-    both = same & (pa >= 0)
-    assert same.mean() >= PRIM_AGREE, same.mean()
-    assert (np.abs(ta - tb)[both] <= 1e-5 * np.abs(tb[both]) + 1e-6).all()
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("wave", ["primary", "bounce"])
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_bvh_kernel_matches_walker(gpu_scene, wave, any_hit):
+    """K2 (4-wide) against the binary walker: the same hits but for exact
+    ties in t and a t that rounds below its box's tnear."""
     from pbrt_v3_iile_tpu_torch.ops import intersect as isect
     from pbrt_v3_iile_tpu_torch.ops import intersect_kernel as k2
 
     scene, _, waves = gpu_scene
     o, d, tm = waves[wave]
     n0 = k2.LAUNCHES
-    t, prim, _, _ = k2.bvh_traverse_cuda(scene.nodes_packed, scene.tris_packed,
-                                         o, d, tm, any_hit=any_hit)
+    t, prim, _, _ = k2.bvh_traverse_cuda(scene.bvh4_nodes, scene.bvh4_stack,
+                                         scene.tris_packed, o, d, tm,
+                                         any_hit=any_hit)
     torch.cuda.synchronize()
     assert k2.LAUNCHES == n0 + 1
     ref = isect.intersect_bvh(scene, o, d, tm, any_hit=any_hit)
     if any_hit:
         assert ((prim >= 0) == ref.valid).float().mean().item() >= PRIM_AGREE
     else:
-        _agree(t, prim, ref.t, ref.prim)
+        same = prim == ref.prim
+        assert same.float().mean().item() >= PRIM_AGREE
+        assert torch.equal(t[same], ref.t[same])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wave", ["primary", "bounce"])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_bvh_kernel_matches_wide_plain(gpu_scene, wave, any_hit):
+    """K2 against its plain version in its own order: t, prim and the
+    barycentrics identical on every ray."""
+    from pbrt_v3_iile_tpu_torch.ops import intersect_kernel as k2
+
+    scene, _, waves = gpu_scene
+    o, d, tm = waves[wave]
+    got = k2.bvh_traverse_cuda(scene.bvh4_nodes, scene.bvh4_stack,
+                               scene.tris_packed, o, d, tm, any_hit=any_hit)
+    torch.cuda.synchronize()
+    want = k2.bvh_traverse_wide_plain(scene.bvh4_nodes, scene.tris_packed,
+                                      o, d, tm, any_hit=any_hit)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_bvh_kernel_on_coincident_leaves(gpu_scene, any_hit):
+    """Binary leaves of 6 and 10 triangles (coincident centroids): K2
+    against its plain version, identical on every ray, and against the
+    binary walker, which tests the first 4 of a leaf as the collapse
+    keeps them."""
+    from pbrt_v3_iile_tpu_torch.ops import bvh
+    from pbrt_v3_iile_tpu_torch.ops import intersect as isect
+    from pbrt_v3_iile_tpu_torch.ops import intersect_kernel as k2
+    from torch_parity import coincident_soup, pack_bvh, rays_at
+
+    rng = np.random.default_rng(11)
+    p0, e1, e2, centres = coincident_soup(rng, 300, (6, 10))
+    flat = bvh.build_bvh(np.stack([p0, p0 + e1, p0 + e2], 1), use_native=False)
+    order = flat.prim_order
+    nodes, tris = pack_bvh(flat.node_min, flat.node_max, flat.node_right,
+                           flat.node_count, flat.node_axis, p0[order],
+                           e1[order], e2[order])
+    assert {6, 10} <= set((nodes[:, 7] >> 2).tolist())
+    wide, depth = k2.build_bvh4_np(nodes)
+    dev = torch.device("cuda")
+    scene = SimpleNamespace(nodes_packed=torch.as_tensor(nodes, device=dev),
+                            tris_packed=torch.as_tensor(tris, device=dev))
+    wide = torch.as_tensor(wide, device=dev)
+    o, d, tm = (torch.as_tensor(x, device=dev) for x in rays_at(rng, centres, 4096))
+    got = k2.bvh_traverse_cuda(wide, depth, scene.tris_packed, o, d, tm,
+                               any_hit=any_hit)
+    torch.cuda.synchronize()
+    want = k2.bvh_traverse_wide_plain(wide, scene.tris_packed, o, d, tm,
+                                      any_hit=any_hit)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    ref = isect.intersect_bvh(scene, o, d, tm, any_hit=any_hit)
+    assert ((got[1] >= 0) == ref.valid).float().mean().item() >= PRIM_AGREE
+    if not any_hit:
+        assert (got[1] == ref.prim).float().mean().item() >= PRIM_AGREE
 
 
 @pytest.mark.cuda
@@ -121,6 +179,28 @@ def test_cuda_render_matches_cpu_render(gpu_scene):
     sd.integrator.max_depth = 3
     gpu, _ = renderlib.render(sd, spp=2, seed=7, device="cuda", compact=True,
                               cluster_maxc=8)
+    cpu, _ = renderlib.render(sd, spp=2, seed=7, device="cpu", compact=True)
+    assert abs(gpu.mean() - cpu.mean()) < 0.02 * cpu.mean()
+    rel = np.abs(gpu - cpu) / (np.abs(cpu) + 1e-2)
+    assert (rel < 0.05).mean() > 0.99
+
+
+@pytest.mark.cuda
+def test_cuda_bvh_render_matches_cpu_render(gpu_scene):
+    """render(..., accel="bvh") on the GPU (the BVH kernel for every
+    traversal) and on the CPU (plain walker) give the same image by
+    test_golden's criterion."""
+    from pbrt_v3_iile_tpu_torch.scene import api as apilib
+    from pbrt_v3_iile_tpu_torch.integrators import render as renderlib
+    from pbrt_v3_iile_tpu_torch.ops import intersect_kernel as k2
+
+    sd = apilib.load_scene(ATRIUM)
+    sd.film.x_resolution = sd.film.y_resolution = 24
+    sd.integrator.max_depth = 3
+    n0 = k2.LAUNCHES
+    gpu, _ = renderlib.render(sd, spp=2, seed=7, device="cuda", compact=True,
+                              accel="bvh")
+    assert k2.LAUNCHES > n0
     cpu, _ = renderlib.render(sd, spp=2, seed=7, device="cpu", compact=True)
     assert abs(gpu.mean() - cpu.mean()) < 0.02 * cpu.mean()
     rel = np.abs(gpu - cpu) / (np.abs(cpu) + 1e-2)

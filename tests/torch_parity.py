@@ -93,6 +93,55 @@ def assert_mostly_close(a, b, rtol, atol=0.0, name="", frac=0.999,
     assert loose.all(), f"{name}: outside rtol_all={rtol_all}; {diff(a, b)}"
 
 
+def pack_bvh(nodes_min, nodes_max, right, count, axis, p0, e1, e2):
+    """A FlatBVH's arrays and its triangles (in BVH order) -> the scene's
+    ``nodes_packed`` (M, 8) i32 and ``tris_packed`` (T, 12) f32."""
+    nodes = np.zeros((nodes_min.shape[0], 8), np.int32)
+    nodes[:, 0:3] = nodes_min.astype(np.float32).view(np.int32)
+    nodes[:, 3:6] = nodes_max.astype(np.float32).view(np.int32)
+    nodes[:, 6] = right
+    nodes[:, 7] = (count << 2) | axis
+    tris = np.zeros((p0.shape[0], 12), np.float32)
+    tris[:, 0:3], tris[:, 3:6], tris[:, 6:9] = p0, e1, e2
+    return nodes, tris
+
+
+def coincident_soup(rng, T, groups):
+    """(p0, e1, e2) f32 of T random triangles (tests/test_clusters.py's
+    soup) and, for each entry g of `groups`, g more triangles whose
+    bounding boxes share one centre, so that the BVH builders put each
+    group in one leaf of g triangles.  Coordinates are multiples of 1/64,
+    so the centres are exactly equal; the triangles differ in size and
+    cross the centre's z line at distinct depths.  Also returns the
+    centres."""
+    p0 = rng.uniform(-1, 1, (T, 3))
+    e1 = rng.uniform(-0.4, 0.4, (T, 3))
+    e2 = rng.uniform(-0.4, 0.4, (T, 3))
+    verts, centres = [np.stack([p0, p0 + e1, p0 + e2], 1)], []
+    for i, g in enumerate(groups):
+        c = np.array([1.5 * (-1) ** i, 0.25, -0.5])
+        centres.append(c)
+        for k in range(g):
+            s, h = (k + 2) / 16, (k + 1) / 16
+            z2 = h / 2 if k % 2 else -h / 2
+            verts.append((c + np.array([[-s, -s, -h], [s, -s, h],
+                                        [0.0, s, z2]]))[None])
+    v = np.concatenate(verts).astype(np.float32)
+    return v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0], np.array(centres)
+
+
+def rays_at(rng, centres, N):
+    """N unit rays: from 2 away towards one of `centres` (jittered by up
+    to 0.05), every fifth with t_max 2 and the others 1e30."""
+    c = centres[np.arange(N) % len(centres)]
+    u = rng.normal(size=(N, 3))
+    o = c + 2 * u / np.linalg.norm(u, axis=1, keepdims=True)
+    d = c + rng.uniform(-0.05, 0.05, (N, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.where(np.arange(N) % 5 == 0, 2.0, 1e30)
+    return o.astype(np.float32), d.astype(np.float32), tmax.astype(np.float32)
+
+
 def golden_criterion(img, ref):
     """tests/test_golden.py's criterion: mean within 2%, and >= 99% of
     pixels within 5% relative (+1e-2)."""
@@ -105,9 +154,15 @@ def golden_criterion(img, ref):
 
 def jax_scene_leaves(ds) -> dict:
     """Numpy leaves of a JAX DeviceScene under the names the port's
-    ``scene_from_numpy`` reads (the port's fields only)."""
+    ``scene_from_numpy`` reads (the port's fields only).  The BVH kernel's
+    4-wide nodes, which the reference lacks, are collapsed by the port's
+    ``build_bvh4_np`` from the reference's ``nodes_packed``."""
+    from pbrt_v3_iile_tpu_torch.ops.intersect_kernel import build_bvh4_np
+
     out = {}
     for f in fields(DeviceScene):
+        if f.name.startswith("bvh4_"):
+            continue
         if f.name == "textures":
             for g in fields(TextureTable):
                 out[f"textures.{g.name}"] = np.asarray(getattr(ds.textures, g.name))
@@ -117,4 +172,6 @@ def jax_scene_leaves(ds) -> dict:
                     out[f"clusters.{g.name}"] = np.asarray(getattr(ds.clusters, g.name))
         else:
             out[f.name] = np.asarray(getattr(ds, f.name))
+    wide, depth = build_bvh4_np(out["nodes_packed"])
+    out["bvh4_nodes"], out["bvh4_stack"] = wide, np.int32(depth)
     return out
