@@ -31,20 +31,49 @@ Phases (one line each):
      path).  Kernel launch counts and the calls of the torch cull
      (per_ray_cull, which must make none) are read around each path: the
      clusters path must launch both kernels, the bvh path K2 and not K1;
-  7. timing (printed, no threshold): each kernel, its plain versions and
+  7. IILE (integrators/iispt.py::render_iile, the pretrained IISPTNet),
+     before any profiler session: (a) atrium 128^2, accel "bvh", 2
+     indirect tasks, 4 direct passes, 32^2 hemispheres, seed 0, held
+     against the JAX package's CPU render of the same settings
+     (tests/golden/iile_atrium128_bvh_t2_d4_s0.npz, made by
+     tools/make_iile_golden.py): each of combined, direct and indirect
+     within 1% globally, 2% in each horizontal third and 3% blurred
+     relative L1, with K2 launched and K1 not; then two controls read
+     against the same tolerances and printed, not held: the same render
+     with TF32 in the U-Net's convolutions, and with seed 1; (b) the
+     directlighting integrator at 128^2, 64 spp, seed 3, on clusters, against the
+     reference C++ renderer's image with the atrium-direct tolerances of
+     tests/test_oracle_parity.py; (c) the default CUDA configuration
+     (clusters) at the settings of (a): the combined image against the
+     same golden at the oracle's atrium-path tolerances, direct and
+     indirect readings printed, K1 launched; (c') IILE's direct pass
+     alone (iispt.direct_passes) at 128^2, 64 passes, compacted on
+     clusters with seeds 3 and 4 and uncompacted on bvh with seed 3,
+     each against the C++ direct image at the atrium-direct tolerances;
+     (d) measured, no threshold:
+     the full-width render, atrium 512^2, 16 tasks of 121 probes of 32^2,
+     16 direct passes, on clusters: wall seconds of the indirect and
+     direct phases, per task the probe stage, the CNN, the specular chase
+     and the MIS stage by CUDA events, kernel launches per task, the
+     device memory peak, the PSNR against the 320-spp reference
+     (tests/golden/atrium_gt_oracle_path320_512.npz), and the U-Net alone
+     on one task's 121 probes by CUDA events against its bound;
+  8. timing (printed, no threshold): each kernel, its plain versions and
      the torch candidate tables K1 no longer needs, at the main-path
      shapes, by CUDA events, with each kernel's bound computed from this
      run's inputs; K2 at every wave of a bvh pass; the atrium 512^2 depth-5 compacted
      pass as bench.py configures it, with each accel, passes in turns, in
      Mrays/s counted as path.py counts rays, the kernel launches per pass,
-     and one profiled pass each: device-busy ms and idle share.
+     and one profiled pass each: device-busy ms and idle share; last, the
+     first task of the 512^2 IILE render, unprofiled and then profiled.
 Prints the kernel JSON line, the device line, and as its last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero with no result.
-Long output (the profiler table) goes to chiprun_out/.
+Long output (the profiler tables) goes to files in OUT_DIR.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -66,6 +95,12 @@ B_ATOL = 1e-4        # barycentrics where the prims agree
 XALG_AGREE = 0.995   # cluster (Pluecker) vs BVH (Moller) traversal: the
                      # two triangle tests differ on rays grazing shared edges
 ORACLE = ("atrium_ref_path96_128.npy", 0.015, (0.02, 0.02, 0.02), 0.07)
+ORACLE_DIRECT = ("atrium_ref_direct96_128.npy", 0.02, (0.03, 0.025, 0.02), 0.07)
+# IILE against the JAX package's render of the same settings and seed:
+IILE_GOLDEN = "iile_atrium128_bvh_t2_d4_s0.npz"
+IILE_TOL = (0.01, (0.02, 0.02, 0.02), 0.03)
+IILE_SMALL = dict(indirect_tasks=2, direct_samples=4, hemi_size=32, seed=0)
+IILE_FULL = dict(indirect_tasks=16, direct_samples=16, hemi_size=32, seed=0)
 
 # the H100 SXM's published peaks (700 W): fp32 outside the tensor cores,
 # and HBM bandwidth
@@ -141,28 +176,242 @@ def compare_hits(name, ta, pa, tb, pb, b1a=None, b2a=None, b1b=None, b2b=None,
     return out
 
 
-def oracle_check(name, img):
-    fixture, gtol, rtols, btol = ORACLE
-    ref = np.load(os.path.join(REPO, "tests", "golden", fixture))
+def image_check(name, img, ref, gtol, rtols, btol, enforce=True):
+    """Global mean, the means of the horizontal thirds and the 4x4-blurred
+    relative L1 of img against ref (tests/test_oracle_parity.py's
+    criterion); printed with whether they meet the tolerances, held to
+    them when enforce.  Returns whether they meet them."""
     g = abs(img.mean() - ref.mean()) / ref.mean()
     res = img.shape[0]
     h = res // 3
-    regions = []
+    regions, signed, ok_regions = [], [], True
     for (lo, hi), tol in zip(((0, h), (h, 2 * h), (2 * h, res)), rtols):
         m, r = img[lo:hi].mean(), ref[lo:hi].mean()
-        regions.append(float(abs(m - r) / max(r, 1e-3)))
-        check(abs(m - r) < tol * max(r, 1e-3),
+        signed.append(float((m - r) / max(r, 1e-3)))
+        regions.append(abs(signed[-1]))
+        ok_regions &= bool(abs(m - r) < tol * max(r, 1e-3))
+        check(not enforce or abs(m - r) < tol * max(r, 1e-3),
               f"{name}: rows {lo}:{hi} mean {m} vs reference {r}")
     n = res // 4 * 4
     blur = lambda x: x[:n, :n].reshape(n // 4, 4, n // 4, 4, 3).mean((1, 3))
     bm, br = blur(img), blur(ref)
     rel = float(np.abs(bm - br).mean() / br.mean())
+    finite = bool(np.isfinite(img).all())
+    ok = finite and ok_regions and bool(g < gtol) and rel < btol
     line(name, mean=float(img.mean()), ref_mean=float(ref.mean()),
-         global_rel=float(g), region_rel=regions, blur_rel_l1=rel,
-         finite=bool(np.isfinite(img).all()))
-    check(np.isfinite(img).all(), f"{name}: non-finite pixels")
-    check(g < gtol, f"{name}: global mean off by {g}")
-    check(rel < btol, f"{name}: blurred rel L1 {rel}")
+         global_rel=float(g), region_rel=regions, region_signed=signed,
+         blur_rel_l1=rel,
+         finite=finite, within_tolerance=ok, held=enforce)
+    check(finite, f"{name}: non-finite pixels")
+    check(not enforce or g < gtol, f"{name}: global mean off by {g}")
+    check(not enforce or rel < btol, f"{name}: blurred rel L1 {rel}")
+    return ok
+
+
+def oracle_check(name, img, oracle=ORACLE):
+    fixture, gtol, rtols, btol = oracle
+    ref = np.load(os.path.join(REPO, "tests", "golden", fixture))
+    image_check(name, img, ref, gtol, rtols, btol)
+
+
+class StageTimer:
+    """Context manager factory for render_iile's span hook: CUDA events
+    around each stage, summed per stage name after a synchronize."""
+
+    def __init__(self):
+        self.events = []
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        try:
+            yield
+        finally:
+            b.record()
+            self.events.append((name, a, b))
+
+    def totals_ms(self):
+        torch.cuda.synchronize()
+        out = {}
+        for name, a, b in self.events:
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+        return out
+
+
+def psnr(img, ref):
+    """PSNR in dB against the reference's peak (scripts/bench_quality.py)."""
+    mse = float(np.mean((img.astype(np.float64) - ref) ** 2))
+    return 10.0 * np.log10(float(ref.max()) ** 2 / mse)
+
+
+def iile_phase(dev, scene_path, smi, K1, K2):
+    """Phase 7: the IILE gates (a)-(c) and the full-width measurement (d).
+    Returns the launch counts of the bvh and clusters renders and per task
+    of the full-width one."""
+    from pbrt_v3_iile_tpu_torch.integrators import iispt
+    from pbrt_v3_iile_tpu_torch.integrators import render as renderlib
+    from pbrt_v3_iile_tpu_torch.models import iisptnet, weights
+    from pbrt_v3_iile_tpu_torch.ops import threefry
+    from pbrt_v3_iile_tpu_torch.scene import api as apilib
+
+    def atrium(res, kind=None):
+        sd = apilib.load_scene(scene_path)
+        sd.film.x_resolution = sd.film.y_resolution = res
+        if kind:
+            sd.integrator.kind = kind
+        return sd
+
+    def counted(fn):
+        K1.LAUNCHES = K2.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0, {"cluster_traverse": K1.LAUNCHES,
+                                       "bvh_traverse": K2.LAUNCHES}
+
+    golden = np.load(os.path.join(REPO, "tests", "golden", IILE_GOLDEN))
+    gtol, rtols, btol = IILE_TOL
+    res = {}
+    # (a) bvh against the JAX package's render
+    (c, d, i, st), secs, n = counted(lambda: iispt.render_iile(
+        atrium(128), accel="bvh", device=dev, **IILE_SMALL))
+    for name, img in (("combined", c), ("direct", d), ("indirect", i)):
+        image_check(f"iile128_bvh_vs_jax_{name}", img,
+                    golden[name].astype(np.float32), gtol, rtols, btol)
+    line("iile128_bvh", wall_seconds=secs, launches=n, **st)
+    check(n["bvh_traverse"] > 0, "K2 never launched in the bvh IILE render")
+    check(n["cluster_traverse"] == 0, "K1 launched in the bvh IILE render")
+    res["bvh"] = n
+
+    # controls of gate (a), read against its tolerances and not held: the
+    # same render with TF32 convolutions in the U-Net, and with seed 1 (an
+    # independent realisation of the same estimator)
+    @contextlib.contextmanager
+    def tf32_convolutions(device):
+        prev = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = prev
+
+    fp32_convolutions = iispt._fp32_convolutions
+    iispt._fp32_convolutions = tf32_convolutions
+    try:
+        tf32_imgs = iispt.render_iile(atrium(128), accel="bvh", device=dev,
+                                      **IILE_SMALL)[:3]
+    finally:
+        iispt._fp32_convolutions = fp32_convolutions
+    seed1_imgs = iispt.render_iile(atrium(128), accel="bvh", device=dev,
+                                   **dict(IILE_SMALL, seed=1))[:3]
+    for control, imgs in (("tf32", tf32_imgs), ("seed1", seed1_imgs)):
+        passes = [image_check(f"iile128_bvh_{control}_vs_jax_{name}", img,
+                              golden[name].astype(np.float32), gtol, rtols,
+                              btol, enforce=False)
+                  for name, img in zip(("combined", "direct", "indirect"),
+                                       imgs)]
+        line(f"iile128_bvh_{control}_control", within_tolerance=passes)
+
+    # (b) directlighting against the reference C++ renderer
+    (img, st), _, n = counted(lambda: renderlib.render(
+        atrium(128, "directlighting"), spp=64, seed=3, device=dev))
+    oracle_check("directlighting128", img, ORACLE_DIRECT)
+    line("directlighting128_stats", launches=n, **st)
+    check(n["cluster_traverse"] > 0, "K1 never launched in directlighting")
+
+    # (c) the default configuration (clusters)
+    (c, d, i, st), secs, n = counted(lambda: iispt.render_iile(
+        atrium(128), device=dev, **IILE_SMALL))
+    check(st["accel"] == "clusters", f"default IILE accel is {st['accel']}")
+    _, g_tol, g_rtols, g_btol = ORACLE
+    for name, img in (("combined", c), ("direct", d), ("indirect", i)):
+        image_check(f"iile128_clusters_vs_jax_{name}", img,
+                    golden[name].astype(np.float32), g_tol, g_rtols, g_btol,
+                    enforce=name == "combined")
+    line("iile128_clusters", wall_seconds=secs, launches=n, **st)
+    check(n["cluster_traverse"] > 0, "K1 never launched in the IILE render")
+    res["clusters"] = n
+
+    # (c') IILE's direct pass alone at 64 passes against the reference C++
+    # renderer's direct image at the atrium-direct tolerances (the direct
+    # image of (c) is only printed): compacted on clusters with seeds 3
+    # and 4, and uncompacted on bvh with seed 3, the same estimator
+    # without the compaction
+    sd = atrium(128)
+    scene, cam = renderlib.build(sd, dev, with_clusters=True)
+    for accel, seed in (("clusters", 3), ("clusters", 4), ("bvh", 3)):
+        dkey = threefry.fold_in(threefry.prng_key(seed), 5000)
+        img, secs, n = counted(lambda: iispt.direct_passes(
+            sd, scene, cam, dkey, 64, accel, dev))
+        name = f"iile128_direct_pass_{accel}_64_s{seed}"
+        oracle_check(name, img, ORACLE_DIRECT)
+        line(f"{name}_stats", wall_seconds=secs, launches=n)
+        k = "cluster_traverse" if accel == "clusters" else "bvh_traverse"
+        check(n[k] > 0, f"{k} never launched in {name}")
+    del scene, cam
+
+    # (d) the full-width render, measured
+    timer = StageTimer()
+    per_task = []
+
+    def report(phase, done, total):
+        if phase == "indirect":
+            per_task.append((K1.LAUNCHES, K2.LAUNCHES))
+
+    torch.cuda.reset_peak_memory_stats()
+    (c, d, i, st), secs, n = counted(lambda: iispt.render_iile(
+        atrium(512), device=dev, report=report, span=timer, **IILE_FULL))
+    peak = torch.cuda.max_memory_allocated()
+    stages = timer.totals_ms()
+    k1_task = [b[0] - a[0] for a, b in zip([(0, 0)] + per_task, per_task)]
+    k2_task = [b[1] - a[1] for a, b in zip([(0, 0)] + per_task, per_task)]
+    gt = np.load(os.path.join(REPO, "tests", "golden",
+                              "atrium_gt_oracle_path320_512.npz"))["img"]
+    gt = gt.astype(np.float64)
+    check(all(np.isfinite(x).all() for x in (c, d, i)),
+          "non-finite 512^2 IILE image")
+    check(c.mean() > 0 and i.mean() > 0, "black 512^2 IILE image")
+    n_tasks = st["tasks"]
+    line("iile512_full", wall_seconds=secs, indirect_seconds=st["indirect_seconds"],
+         direct_seconds=st["direct_seconds"], tasks=n_tasks,
+         stage_ms_total=stages,
+         stage_ms_per_task={k: v / n_tasks for k, v in stages.items()},
+         launches=n, k1_per_task=k1_task, k2_per_task=k2_task,
+         max_memory_allocated_gb=peak / 1e9,
+         psnr_combined=psnr(c, gt), psnr_direct_only=psnr(d, gt),
+         means=[float(c.mean()), float(d.mean()), float(i.mean())],
+         gt_mean=float(gt.mean()), power=smi)
+
+    # the U-Net alone on one task's 121 probes (fp32, no TF32), and its bound
+    net = weights.load_iisptnet(device=dev)
+    x = torch.randn(121, 32, 32, 7, generator=torch.Generator().manual_seed(0)
+                    ).to(dev)
+    with torch.no_grad(), iispt._fp32_convolutions(dev):
+        cnn_ms = cuda_ms(lambda: net(x), 20)
+    with torch.no_grad():
+        prev = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32_ms = cuda_ms(lambda: net(x), 20)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = prev
+    flops = 121 * iisptnet.forward_flops(32)
+    wbytes = sum(p.numel() * 4 for p in net.parameters())
+    cnn_bound, cnn_by = bound(flops, wbytes + x.numel() * 4 + 121 * 32 * 32 * 3 * 4)
+    line("iisptnet_121_probes", ms=cnn_ms, tf32_ms=tf32_ms, gflop=flops / 1e9,
+         bound_ms=cnn_bound, bound_by=cnn_by, power=smi)
+    res["per_task"] = {"cluster_traverse": sum(k1_task) / n_tasks,
+                       "bvh_traverse": sum(k2_task) / n_tasks}
+    return res
 
 
 def main():
@@ -385,7 +634,10 @@ def main():
     check(launches_bvh["cluster_traverse"] == 0, "K1 launched on the bvh path")
     check(cllib.CALLS == 0, "the bvh path called the torch cull")
 
-    # ---- 7. timing, bounds ----
+    # ---- 7. IILE, before any profiler session ----
+    iile = iile_phase(dev, scene_path, smi, K1, K2)
+
+    # ---- 8. timing, bounds ----
     # the timed passes come first: a profiler session leaves tracing
     # overhead on the launches that follow it
     def pass_fn(accel):
@@ -504,33 +756,61 @@ def main():
          sum_ms=sum(w["ms"] for w in per_wave), power=smi)
     K1.LAUNCHES, K2.LAUNCHES = l1, l2  # timing launches are not main-path ones
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for accel, run in runs.items():
+    def profiled(name, fn, unprofiled_s, table_file, keys):
+        """Device-busy ms of one run of fn under torch.profiler (the rows
+        of device events only: an operator's row repeats the time of the
+        kernels it launched) and the idle share against unprofiled_s; the
+        profiled and unprofiled ms are printed under the names in keys,
+        the profiler's table goes to OUT_DIR/table_file."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.time()
-            L, _, _ = run(scene, cam, key, n_pass + 1)
-            float(L.sum())
+            fn()
+            torch.cuda.synchronize()
             prof_s = time.time() - t0
         table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-        with open(os.path.join(OUT_DIR, f"profile_atrium512_{accel}.txt"), "w") as f:
+        with open(os.path.join(OUT_DIR, table_file), "w") as f:
             f.write(table)
-        # device-busy time: the rows of device events (kernels, copies) only;
-        # an operator's row repeats the time of the kernels it launched
         evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         dev_us = sum(e.self_device_time_total for e in evs)
         check(dev_us > 0, "the profiler saw no device time")
         top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
-        median_s = float(np.median(res[accel]["times"]))
-        line(f"profile_atrium512_pass_{accel}", device_busy_ms=dev_us / 1e3,
+        line(name, device_busy_ms=dev_us / 1e3,
              device_events=sum(e.count for e in evs),
-             profiled_pass_ms=prof_s * 1e3, median_pass_ms=median_s * 1e3,
-             idle_share=1.0 - dev_us / 1e6 / median_s,
+             **{keys[0]: prof_s * 1e3, keys[1]: unprofiled_s * 1e3},
+             idle_share=1.0 - dev_us / 1e6 / unprofiled_s,
              idle_share_profiled=1.0 - dev_us / 1e6 / prof_s,
              top=[(e.key[:60], e.count, round(e.self_device_time_total / 1e3, 3))
                   for e in top], power=smi)
+
+    for accel, run in runs.items():
+        profiled(f"profile_atrium512_pass_{accel}",
+                 lambda: float(run(scene, cam, key, n_pass + 1)[0].sum()),
+                 float(np.median(res[accel]["times"])),
+                 f"profile_atrium512_{accel}.txt",
+                 ("profiled_pass_ms", "median_pass_ms"))
+
+    # the first task of the full-width IILE render (4 chunks of 65,536
+    # pixels), timed unprofiled and then profiled
+    from pbrt_v3_iile_tpu_torch.integrators import iispt, schedule
+    from pbrt_v3_iile_tpu_torch.models import weights
+
+    net = weights.load_iisptnet(device=dev)
+    task = schedule.compute_schedule(512, 512, 1)[0]
+    tkey = threefry.fold_in(threefry.prng_key(0), 1000)
+    first_task = lambda: iispt.run_task(scene, cam, sd, net, tkey, task,
+                                        accel="clusters")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    first_task()
+    torch.cuda.synchronize()
+    profiled("profile_iile512_task0", first_task, time.time() - t0,
+             "profile_iile512_task0.txt",
+             ("profiled_task_ms", "unprofiled_task_ms"))
 
     kernels = [
         dict(name="cluster_traverse", route="cuda",
@@ -540,7 +820,9 @@ def main():
              ms=ms["cluster_traverse"], plain_ms=ms["cluster_plain"],
              bound_ms=k1_bound, bound_by=k1_by, library_ms=None,
              launches_per_pass=per_pass["clusters"]["cluster_traverse"],
-             launches_per_pass_bvh=per_pass["bvh"]["cluster_traverse"]),
+             launches_per_pass_bvh=per_pass["bvh"]["cluster_traverse"],
+             launches_iile=iile["clusters"]["cluster_traverse"],
+             launches_iile_per_task=iile["per_task"]["cluster_traverse"]),
         dict(name="bvh_traverse", route="cuda",
              source="pbrt_v3_iile_tpu_torch/csrc/bvh_traverse.cu",
              replaces="pbrt_v3_iile_tpu/ops/intersect_pallas.py:301",
@@ -549,7 +831,8 @@ def main():
              bound_ms=k2_bound, bound_by=k2_by, library_ms=None,
              launches_per_pass=per_pass["clusters"]["bvh_traverse"],
              launches_per_pass_bvh=per_pass["bvh"]["bvh_traverse"],
-             launches_clusters_path=launches["bvh_traverse"]),
+             launches_clusters_path=launches["bvh_traverse"],
+             launches_iile_bvh=iile["bvh"]["bvh_traverse"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

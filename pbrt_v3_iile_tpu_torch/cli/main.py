@@ -1,9 +1,16 @@
-"""Command-line renderer of the PyTorch port (path integrator).
+"""Command-line renderer of the PyTorch port.
 
 Usage:
   python -m pbrt_v3_iile_tpu_torch.cli.main scene.pbrt [out.pfm] \
-      [--spp N] [--seed S] [--accel bvh|clusters] [--compact] \
-      [--device cuda|cpu] [--outfile PATH]
+      [--integrator path|directlighting|iispt] [--spp N] [--seed S] \
+      [--accel bvh|clusters] [--compact] [--device cuda|cpu] \
+      [--iileIndirect N] [--iileDirect N] [--iispt_hemi_size N] \
+      [--weights NPZ] [--outfile PATH]
+
+``iispt`` renders with IILE and also writes ``iispt_direct.exr`` and
+``iispt_indirect.exr`` beside the output, printing ``#INDPROGRESS!<f>``
+and ``#DIRECTPROGRESS!<f>`` as the tasks and direct passes finish, and
+``#FINISH!`` at the end, as the reference's launcher expects.
 
 Scenes are parsed by the port's own ``scene/api.py`` and images written
 through its ``utils/image.py`` (.pfm, .png tonemapped, .exr).
@@ -41,6 +48,18 @@ def main(argv=None):
                     help="output image (overrides the positional one)")
     ap.add_argument("--spp", type=int, default=None,
                     help="override the sampler's pixelsamples")
+    ap.add_argument("--integrator", default=None,
+                    choices=["path", "directlighting", "iispt"],
+                    help="override the scene's integrator")
+    ap.add_argument("--iileIndirect", type=int, default=16,
+                    dest="iile_indirect", help="IILE indirect tasks")
+    ap.add_argument("--iileDirect", type=int, default=16,
+                    dest="iile_direct", help="IILE progressive direct passes")
+    ap.add_argument("--iispt_hemi_size", type=int, default=32,
+                    help="IILE probe hemisphere resolution")
+    ap.add_argument("--weights", default=None,
+                    help="IISPTNet npz (default: the committed pretrained "
+                         "model)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--accel", default=None, choices=["bvh", "clusters"],
                     help="aggregate (default: clusters on CUDA, bvh on CPU)")
@@ -56,11 +75,32 @@ def main(argv=None):
     from ..integrators import render as renderlib
 
     sd = apilib.load_scene(args.scene)
+    if args.integrator:
+        sd.integrator.kind = args.integrator
     out = args.outfile or args.out or sd.film.filename
-    img, stats = renderlib.render(sd, spp=args.spp, seed=args.seed,
-                                  accel=args.accel, compact=args.compact,
-                                  device=args.device)
-    write_output(out, img)
+    if sd.integrator.kind == "iispt":
+        from ..integrators import iispt as iisptlib
+        from ..utils import image as imglib
+
+        def report(phase, done, total):
+            token = "#INDPROGRESS!" if phase == "indirect" else "#DIRECTPROGRESS!"
+            print(f"{token}{done / total}", flush=True)
+
+        img, direct, indirect, stats = iisptlib.render_iile(
+            sd, weights=args.weights, seed=args.seed,
+            indirect_tasks=args.iile_indirect, direct_samples=args.iile_direct,
+            hemi_size=args.iispt_hemi_size, report=report, accel=args.accel,
+            device=args.device)
+        base = os.path.dirname(os.path.abspath(out))
+        imglib.write_exr(os.path.join(base, "iispt_direct.exr"), direct)
+        imglib.write_exr(os.path.join(base, "iispt_indirect.exr"), indirect)
+        write_output(out, img)
+        print("#FINISH!", flush=True)
+    else:
+        img, stats = renderlib.render(sd, spp=args.spp, seed=args.seed,
+                                      accel=args.accel, compact=args.compact,
+                                      device=args.device)
+        write_output(out, img)
     if args.stats:
         print(json.dumps(stats), file=sys.stderr)
     print(f"wrote {out}")

@@ -1,5 +1,6 @@
 """Render driver: scene file -> device scene -> passes -> film (port of
-``integrators/render.py``, the ``path`` integrator only).
+``integrators/render.py``: the ``path`` and ``directlighting``
+integrators; ``iispt`` renders through ``integrators/iispt.py``).
 
 Each pass is one wavefront of 1 spp over the image (or over row chunks
 when the image exceeds ``max_wave`` rays); passes loop on the host and
@@ -22,25 +23,37 @@ from . import path as pathlib_
 COMPACT_SCHEDULE = (1.0, 1.0, 0.5, 0.25, 0.25, 0.125)
 
 
-def make_integrator_config(sd, accel: str = None, device="cuda"):
-    """Resolve the path integrator's config for ``device`` (the card
-    unless the caller asks for the CPU).  accel None = auto: the fused
-    cluster kernel on CUDA, the BVH kernel's plain walker on CPU."""
-    device = torch.device(device)
-    if sd.integrator.kind != "path":
-        raise NotImplementedError(
-            f"integrator {sd.integrator.kind!r} is not ported yet "
-            "(ROADMAP Queue 1, slices 2-3)")
+def resolve_accel(sd, accel: str = None, device="cuda") -> str:
+    """accel None = auto: the scene file's choice, else the fused cluster
+    kernel on CUDA and the BVH kernel's plain walker on CPU."""
     if accel is None:
         accel = sd.accelerator if sd.accelerator in ("kdtree", "clusters") \
-            else ("clusters" if device.type == "cuda" else "bvh")
+            else ("clusters" if torch.device(device).type == "cuda" else "bvh")
     if accel not in ("bvh", "clusters"):
         raise NotImplementedError(f"accel {accel!r} is not ported yet")
-    return pathlib_.PathConfig(
-        max_depth=sd.integrator.max_depth,
-        rr_threshold=sd.integrator.rr_threshold,
-        accel=accel,
-        spatial_lights=sd.integrator.light_strategy == "spatial")
+    return accel
+
+
+def make_integrator_config(sd, accel: str = None, device="cuda"):
+    """Resolve the integrator's config for ``device`` (the card unless the
+    caller asks for the CPU).  ``path`` and ``iispt`` (the path integrator
+    settings; IILE's own stages set theirs) and ``directlighting``
+    (specular paths only, all lights sampled under the "all" strategy)."""
+    kind = sd.integrator.kind
+    accel = resolve_accel(sd, accel, device)
+    if kind in ("path", "iispt"):
+        return pathlib_.PathConfig(
+            max_depth=sd.integrator.max_depth,
+            rr_threshold=sd.integrator.rr_threshold,
+            accel=accel,
+            spatial_lights=sd.integrator.light_strategy == "spatial")
+    if kind == "directlighting":
+        return pathlib_.PathConfig(
+            max_depth=sd.integrator.max_depth,
+            nee_all=sd.integrator.dl_strategy == "all", direct_only=True,
+            accel=accel)
+    raise NotImplementedError(
+        f"integrator {kind!r} is not ported yet (ROADMAP Queue 1, slice 3)")
 
 
 def build(sd, device, with_clusters: bool = None):

@@ -105,3 +105,76 @@ def generate_rays(cam: Camera, p_film, u_lens=None, kind: int = 0):
     o = _apply44_point(cam.cam_to_world, o_cam)
     d = vm.normalize(_apply44_vector(cam.cam_to_world, d_cam))
     return o, d
+
+
+def camera_position(cam: Camera):
+    """World-space camera origin (camera.cpp getCameraWorldPosition)."""
+    return cam.cam_to_world[:3, 3]
+
+
+# ---------------------------------------------------------------------------
+# Hemispheric probe cameras (batched; hemispheric.cpp)
+# ---------------------------------------------------------------------------
+
+def hemi_frames(pos, normal):
+    """LookAt frames of P probes -> (right, up, look), each (P,3): the
+    camera's x, y and z axes in world space.  The up hint is +z unless the
+    normal is the z axis, then +y."""
+    d = vm.normalize(normal)
+    pole = (torch.abs(d[..., 0]) < 1e-9) & (torch.abs(d[..., 1]) < 1e-9)
+    y_up = torch.tensor([0.0, 1.0, 0.0], dtype=d.dtype, device=d.device)
+    z_up = torch.tensor([0.0, 0.0, 1.0], dtype=d.dtype, device=d.device)
+    up = torch.where(pole[..., None], y_up, z_up).expand(d.shape)
+    right = vm.normalize(vm.cross(up, d))
+    return right, vm.cross(d, right), d
+
+
+def _hemi_dir(ys, xs):
+    """Camera-space direction at normalized (row, col) positions: theta
+    over rows, phi over columns, both over [0, pi]."""
+    theta = math.pi * ys
+    phi = math.pi * xs
+    sin_t = torch.sin(theta)
+    return torch.stack([sin_t * torch.cos(phi), torch.cos(theta) * torch.ones_like(phi),
+                        sin_t * torch.sin(phi)], dim=-1)
+
+
+def hemi_directions(hemi_size: int, device=None, dtype=torch.float32):
+    """Camera-space direction of each probe pixel centre (H,W,3) and its
+    sin(theta) (H,W)."""
+    c = (torch.arange(hemi_size, dtype=dtype, device=device) + 0.5) / hemi_size
+    d = _hemi_dir(c[:, None], c[None, :].expand(hemi_size, hemi_size))
+    return d, torch.sin(math.pi * c[:, None]).expand(hemi_size, hemi_size)
+
+
+def hemi_generate_rays(pos, normal, hemi_size: int, jitter=None):
+    """Probe ray generation: pos, normal (P,3) -> o, d (P,H,W,3).
+    jitter: optional (P,H,W,2) sub-pixel offsets in [0,1)."""
+    P = pos.shape[0]
+    right, up, look = hemi_frames(pos, normal)
+    if jitter is None:
+        d_cam, _ = hemi_directions(hemi_size, pos.device, pos.dtype)
+        d_cam = d_cam[None].expand(P, hemi_size, hemi_size, 3)
+    else:
+        idx = torch.arange(hemi_size, dtype=pos.dtype, device=pos.device)
+        ys = (idx[None, :, None] + jitter[..., 1]) / hemi_size
+        xs = (idx[None, None, :] + jitter[..., 0]) / hemi_size
+        d_cam = _hemi_dir(ys, xs)
+    d = (d_cam[..., 0:1] * right[:, None, None, :]
+         + d_cam[..., 1:2] * up[:, None, None, :]
+         + d_cam[..., 2:3] * look[:, None, None, :])
+    return pos[:, None, None, :].expand(d.shape), d
+
+
+def hemi_dir_to_pixel(wi_world, right, up, look, hemi_size: int):
+    """World direction -> probe pixel (x, y) (int32) and an in-range mask
+    (hemispheric.cpp getLightSampleNn: theta = acos(y), phi = atan2(z, x))."""
+    x_c = vm.dot(wi_world, right)
+    y_c = vm.dot(wi_world, up)
+    z_c = vm.dot(wi_world, look)
+    theta = torch.arccos(torch.clamp(y_c, -1.0, 1.0))
+    phi = torch.atan2(z_c, x_c)
+    x = torch.floor(hemi_size * phi / math.pi).to(torch.int32)
+    y = torch.floor(hemi_size * theta / math.pi).to(torch.int32)
+    ok = (x >= 0) & (x < hemi_size) & (y >= 0) & (y < hemi_size)
+    return x, y, ok

@@ -205,3 +205,36 @@ def test_cuda_bvh_render_matches_cpu_render(gpu_scene):
     assert abs(gpu.mean() - cpu.mean()) < 0.02 * cpu.mean()
     rel = np.abs(gpu - cpu) / (np.abs(cpu) + 1e-2)
     assert (rel < 0.05).mean() > 0.99
+
+
+def _golden_close(a, b):
+    """tests/test_golden.py's criterion."""
+    rel = np.abs(a - b) / (np.abs(b) + 1e-2)
+    return abs(a.mean() - b.mean()) < 0.02 * b.mean() and (rel < 0.05).mean() > 0.99
+
+
+@pytest.mark.cuda
+def test_cuda_iile_matches_cpu_iile(gpu_scene):
+    """render_iile with accel="bvh" on the GPU (the BVH kernel for every
+    traversal) and on the CPU (the walker) give the same combined, direct
+    and indirect images by test_golden's criterion; with the default
+    clusters accel on the GPU, the indirect image is the bvh one's (the
+    same hits but for grazing rays) and the combined mean within 2%."""
+    from pbrt_v3_iile_tpu_torch.scene import api as apilib
+    from pbrt_v3_iile_tpu_torch.integrators import iispt
+    from pbrt_v3_iile_tpu_torch.ops import clusters_kernel as k1
+    from pbrt_v3_iile_tpu_torch.ops import intersect_kernel as k2
+
+    sd = apilib.load_scene(ATRIUM)
+    sd.film.x_resolution = sd.film.y_resolution = 24
+    kw = dict(indirect_tasks=1, direct_samples=2, hemi_size=8)
+    n1, n2 = k1.LAUNCHES, k2.LAUNCHES
+    gpu = iispt.render_iile(sd, accel="bvh", device="cuda", **kw)
+    assert k2.LAUNCHES > n2 and k1.LAUNCHES == n1
+    cpu = iispt.render_iile(sd, accel="bvh", device="cpu", **kw)
+    for g, c in zip(gpu[:3], cpu[:3]):
+        assert np.isfinite(g).all() and _golden_close(g, c)
+    clu = iispt.render_iile(sd, device="cuda", **kw)
+    assert clu[3]["accel"] == "clusters" and k1.LAUNCHES > n1
+    assert _golden_close(clu[2], gpu[2])
+    assert abs(clu[0].mean() - gpu[0].mean()) < 0.02 * gpu[0].mean()

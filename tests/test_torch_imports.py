@@ -1,7 +1,9 @@
 """The port imports neither jax nor the JAX package: with
 ``sys.modules["jax"]`` and ``sys.modules["pbrt_v3_iile_tpu"]`` set to None
-every module of pbrt_v3_iile_tpu_torch imports, and a 4x4 scene parsed
-by the port's own ``scene/api.py`` renders.
+every module of pbrt_v3_iile_tpu_torch imports, a 4x4 scene parsed by
+the port's own ``scene/api.py`` renders, and the same scene at 8x8
+renders with IILE (1 task, 1 direct pass, 8x8 hemispheres, the
+pretrained IISPTNet read from its npz).
 
 The check runs in a fresh interpreter, since the test process itself
 has jax loaded (tests/conftest.py).
@@ -38,6 +40,13 @@ sd = apilib.load_scene_string('''
     WorldEnd''')
 img, stats = render.render(sd, spp=1, device="cpu")
 assert img.shape == (4, 4, 3) and (img >= 0).all() and img.mean() > 0
+import numpy as np
+from pbrt_v3_iile_tpu_torch.integrators import iispt
+sd.film.x_resolution = sd.film.y_resolution = 8
+imgs = iispt.render_iile(sd, indirect_tasks=1, direct_samples=1, hemi_size=8,
+                         device="cpu")[:3]
+assert all(x.shape == (8, 8, 3) and np.isfinite(x).all() for x in imgs)
+assert imgs[0].mean() > 0   # one wall: the probes see no lit surface
 assert not any(m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
                for m, v in sys.modules.items() if v is not None)
 assert not any(m == "pbrt_v3_iile_tpu" or m.startswith("pbrt_v3_iile_tpu.")
