@@ -58,14 +58,42 @@ Phases (one line each):
      device memory peak, the PSNR against the 320-spp reference
      (tests/golden/atrium_gt_oracle_path320_512.npz), and the U-Net alone
      on one task's 121 probes by CUDA events against its bound;
+  9. training (ml/, run after phase 7 and before phase 8's profiler
+     sessions): (a) the port's generate_examples on scenes/interior_v1.pbrt
+     (16 probes of 32^2, 4 ground-truth samples, seed 0) against the JAX
+     package's (tests/golden/train_interior_v1_bvh_h32_g4_s4_s0.npz, made
+     by tools/make_train_golden.py): valid identical, each of p, d, n and
+     z over the valid probes within the IILE tolerances of phase 7 on
+     bvh (K2 launched, K1 not) and within the atrium-path ones on
+     clusters (K1 launched); (b) measured: 196 probes at gt_spp 32 on
+     clusters, probe renders a second, launches, finite maps; (c) the
+     full-width train step (K = 64, batch 32, from the pretrained
+     weights, 3 Adam steps on batches of (b)) on the card and on the CPU,
+     in fp32 (losses within 1e-4 relative, the running statistics
+     within 1e-3 of each tensor's max; the gradients and parameters
+     printed) and in fp64 (the losses, and the first step's gradients and
+     every parameter and running statistic within 1e-3 of its tensor's
+     max: in fp32 the bottleneck's weight gradients cancel heavily, so
+     the devices' summation orders show, and Adam turns any gradient
+     difference into a step of lr); (d) 300 steps from a
+     fresh flax-style initialization, the last 20 losses' mean below 0.9
+     times the first 20's, the step's ms by CUDA events against its
+     bound, steps and examples a second, the memory peak; (e) the npz,
+     pickle and torch.save checkpoints reloaded: the eval-mode net's
+     output on 121 probes identical (the npz against the net rounded to
+     float16), then the 128^2 IILE render of (a) of phase 7 with the
+     trained net, its PSNR beside the pretrained net's; (f) the
+     evaluation statistics of the pretrained net on 64 held-out atrium
+     probes, printed;
   8. timing (printed, no threshold): each kernel, its plain versions and
      the torch candidate tables K1 no longer needs, at the main-path
      shapes, by CUDA events, with each kernel's bound computed from this
      run's inputs; K2 at every wave of a bvh pass; the atrium 512^2 depth-5 compacted
      pass as bench.py configures it, with each accel, passes in turns, in
      Mrays/s counted as path.py counts rays, the kernel launches per pass,
-     and one profiled pass each: device-busy ms and idle share; last, the
-     first task of the 512^2 IILE render, unprofiled and then profiled.
+     and one profiled pass each: device-busy ms and idle share; then the
+     first task of the 512^2 IILE render, and last 10 train steps of
+     phase 9, each unprofiled and then profiled.
 Prints the kernel JSON line, the device line, and as its last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero with no result.
 Long output (the profiler tables) goes to files in OUT_DIR.
@@ -101,6 +129,11 @@ IILE_GOLDEN = "iile_atrium128_bvh_t2_d4_s0.npz"
 IILE_TOL = (0.01, (0.02, 0.02, 0.02), 0.03)
 IILE_SMALL = dict(indirect_tasks=2, direct_samples=4, hemi_size=32, seed=0)
 IILE_FULL = dict(indirect_tasks=16, direct_samples=16, hemi_size=32, seed=0)
+# training: the JAX package's dataset of the same settings, the full-width
+# generation and the number of training steps measured
+TRAIN_GOLDEN = "train_interior_v1_bvh_h32_g4_s4_s0.npz"
+TRAIN_GEN = dict(grid=14, gt_spp=32, hemi=32)
+TRAIN_STEPS = 300
 
 # the H100 SXM's published peaks (700 W): fp32 outside the tensor cores,
 # and HBM bandwidth
@@ -240,6 +273,18 @@ class StageTimer:
         return out
 
 
+def run_counted(fn, K1, K2):
+    """fn() with both kernels' launch counts set to 0 just before it:
+    returns its result, its wall seconds and the launches it made."""
+    K1.LAUNCHES = K2.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0, {"cluster_traverse": K1.LAUNCHES,
+                                   "bvh_traverse": K2.LAUNCHES}
+
+
 def psnr(img, ref):
     """PSNR in dB against the reference's peak (scripts/bench_quality.py)."""
     mse = float(np.mean((img.astype(np.float64) - ref) ** 2))
@@ -263,14 +308,7 @@ def iile_phase(dev, scene_path, smi, K1, K2):
             sd.integrator.kind = kind
         return sd
 
-    def counted(fn):
-        K1.LAUNCHES = K2.LAUNCHES = 0
-        torch.cuda.synchronize()
-        t0 = time.time()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.time() - t0, {"cluster_traverse": K1.LAUNCHES,
-                                       "bvh_traverse": K2.LAUNCHES}
+    counted = lambda fn: run_counted(fn, K1, K2)
 
     golden = np.load(os.path.join(REPO, "tests", "golden", IILE_GOLDEN))
     gtol, rtols, btol = IILE_TOL
@@ -285,6 +323,7 @@ def iile_phase(dev, scene_path, smi, K1, K2):
     check(n["bvh_traverse"] > 0, "K2 never launched in the bvh IILE render")
     check(n["cluster_traverse"] == 0, "K1 launched in the bvh IILE render")
     res["bvh"] = n
+    res["bvh_combined"] = c
 
     # controls of gate (a), read against its tolerances and not held: the
     # same render with TF32 convolutions in the U-Net, and with seed 1 (an
@@ -301,13 +340,13 @@ def iile_phase(dev, scene_path, smi, K1, K2):
             (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32) = prev
 
-    fp32_convolutions = iispt._fp32_convolutions
-    iispt._fp32_convolutions = tf32_convolutions
+    fp32_convolutions = iisptnet.fp32_convolutions
+    iisptnet.fp32_convolutions = tf32_convolutions
     try:
         tf32_imgs = iispt.render_iile(atrium(128), accel="bvh", device=dev,
                                       **IILE_SMALL)[:3]
     finally:
-        iispt._fp32_convolutions = fp32_convolutions
+        iisptnet.fp32_convolutions = fp32_convolutions
     seed1_imgs = iispt.render_iile(atrium(128), accel="bvh", device=dev,
                                    **dict(IILE_SMALL, seed=1))[:3]
     for control, imgs in (("tf32", tf32_imgs), ("seed1", seed1_imgs)):
@@ -392,7 +431,7 @@ def iile_phase(dev, scene_path, smi, K1, K2):
     net = weights.load_iisptnet(device=dev)
     x = torch.randn(121, 32, 32, 7, generator=torch.Generator().manual_seed(0)
                     ).to(dev)
-    with torch.no_grad(), iispt._fp32_convolutions(dev):
+    with torch.no_grad(), iisptnet.fp32_convolutions(dev):
         cnn_ms = cuda_ms(lambda: net(x), 20)
     with torch.no_grad():
         prev = (torch.backends.cudnn.allow_tf32,
@@ -411,6 +450,267 @@ def iile_phase(dev, scene_path, smi, K1, K2):
          bound_ms=cnn_bound, bound_by=cnn_by, power=smi)
     res["per_task"] = {"cluster_traverse": sum(k1_task) / n_tasks,
                        "bvh_traverse": sum(k2_task) / n_tasks}
+    return res
+
+
+def map_check(name, got, want, gtol, rtols, btol):
+    """image_check's readings over probe maps (P, H, W, C), held: the
+    global mean, the means of the horizontal thirds of every map and the
+    4x4-blurred L1, each relative to the reference's mean |value| (the
+    maps of normals and distances are signed)."""
+    a, b = got.astype(np.float64), want.astype(np.float64)
+    scale = lambda x: max(float(np.abs(x).mean()), 1e-3)
+    g = abs(a.mean() - b.mean()) / scale(b)
+    H = a.shape[1]
+    h = H // 3
+    regions = [abs(a[:, lo:hi].mean() - b[:, lo:hi].mean()) / scale(b[:, lo:hi])
+               for lo, hi in ((0, h), (h, 2 * h), (2 * h, H))]
+    blur = lambda x: x.reshape(x.shape[0], H // 4, 4, x.shape[2] // 4, 4,
+                               x.shape[3]).mean((2, 4))
+    rel = float(np.abs(blur(a) - blur(b)).mean() / scale(blur(b)))
+    finite = bool(np.isfinite(a).all())
+    line(name, probes=int(a.shape[0]), global_rel=float(g), region_rel=regions,
+         blur_rel_l1=rel, max_abs=float(np.abs(a - b).max()), finite=finite)
+    check(finite, f"{name}: non-finite values")
+    check(g < gtol, f"{name}: global mean off by {g}")
+    for r, tol in zip(regions, rtols):
+        check(r < tol, f"{name}: a third's mean off by {r}")
+    check(rel < btol, f"{name}: blurred rel L1 {rel}")
+
+
+def train_phase(dev, smi, K1, K2, atrium, pretrained_img):
+    """Phase 9: IISPTNet training.  (a) the dataset gates, (b) full-width
+    generation measured, (c) the train step on the card against the same
+    code on the CPU, (d) training measured and its loss-decrease gate, (e)
+    the checkpoints reloaded and a render with the trained net, (f) the
+    evaluation statistics of the pretrained net.  atrium: the 512^2
+    atrium's (scene description, device scene, camera).  Returns the
+    launch counts of the generation runs."""
+    import copy
+    import itertools
+
+    from pbrt_v3_iile_tpu_torch.cli import train as clitrain
+    from pbrt_v3_iile_tpu_torch.integrators import iispt
+    from pbrt_v3_iile_tpu_torch.integrators import render as renderlib
+    from pbrt_v3_iile_tpu_torch.ml import dataset as datasetlib
+    from pbrt_v3_iile_tpu_torch.ml import evalstats
+    from pbrt_v3_iile_tpu_torch.ml import train as trainlib
+    from pbrt_v3_iile_tpu_torch.models import iisptnet, weights
+    from pbrt_v3_iile_tpu_torch.models import transforms as nnx
+    from pbrt_v3_iile_tpu_torch.ops import camera as camlib
+    from pbrt_v3_iile_tpu_torch.ops import threefry
+    from pbrt_v3_iile_tpu_torch.scene import api as apilib
+
+    t_phase = time.time()
+    counted = lambda fn: run_counted(fn, K1, K2)
+    res = {}
+
+    # (a) the dataset gates against the JAX package's generate_examples
+    g = np.load(os.path.join(REPO, "tests", "golden", TRAIN_GOLDEN))
+    sd = apilib.load_scene(os.path.join(REPO, "scenes", str(g["scene_file"])))
+    scene, cam = renderlib.build(sd, dev, with_clusters=True)
+    kind = camlib.KIND.get(sd.camera.kind, 0)
+    for accel, tol in (("bvh", IILE_TOL), ("clusters", ORACLE[1:])):
+        maps, secs, n = counted(lambda: datasetlib.generate_examples(
+            scene, cam, kind, threefry.prng_key(int(g["seed"])),
+            torch.as_tensor(g["coords"], device=dev),
+            hemi_size=int(g["hemi_size"]), gt_spp=int(g["gt_spp"]),
+            accel=accel))
+        m = {k: v.cpu().numpy() for k, v in maps.items()}
+        same = bool(np.array_equal(m["valid"], g["valid"]))
+        line(f"train_dataset_{accel}", valid_identical=same,
+             valid=int(m["valid"].sum()), probes=int(g["valid"].size),
+             wall_seconds=secs, launches=n)
+        check(same, f"dataset {accel}: valid differs from the JAX golden")
+        for k in "pdnz":
+            map_check(f"train_dataset_{accel}_vs_jax_{k}", m[k][g["valid"]],
+                      g[k][g["valid"]], *tol)
+        if accel == "bvh":
+            check(n["bvh_traverse"] > 0 and n["cluster_traverse"] == 0,
+                  f"dataset bvh: launches {n}")
+        else:
+            check(n["cluster_traverse"] > 0, f"dataset clusters: launches {n}")
+        res[f"gate_{accel}"] = n
+
+    # (b) full-width generation, measured
+    gen = TRAIN_GEN
+    coords = clitrain.probe_grid(sd.film.x_resolution, sd.film.y_resolution,
+                                 gen["grid"])
+    P = coords.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    maps, secs, n = counted(lambda: datasetlib.generate_examples(
+        scene, cam, kind, threefry.prng_key(1), torch.as_tensor(coords, device=dev),
+        hemi_size=gen["hemi"], gt_spp=gen["gt_spp"], accel="clusters"))
+    m = {k: v.cpu().numpy() for k, v in maps.items()}
+    finite = all(bool(np.isfinite(m[k]).all()) for k in "pdnz")
+    raws = [{k: m[k][i] for k in "pdnz"} for i in range(P) if m["valid"][i]]
+    renders = P * (1 + gen["gt_spp"])
+    line("train_generate_full", scene=str(g["scene_file"]), probes=P,
+         valid=len(raws), hemi=gen["hemi"], gt_spp=gen["gt_spp"],
+         wall_seconds=secs, probe_renders=renders,
+         probe_renders_per_s=renders / secs,
+         rays=renders * gen["hemi"] ** 2, launches=n, finite=finite,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         power=smi)
+    check(finite, "non-finite maps in the full-width dataset")
+    check(n["cluster_traverse"] > 0, "K1 never launched in the generation")
+    check(len(raws) >= 3 * trainlib.BATCH_SIZE // 16, "too few valid probes")
+    res["generation"] = n
+
+    # (c) the train step at full width, on the card and on the CPU, from the
+    # pretrained weights in training mode, on three batches of (b)
+    batches = list(itertools.islice(datasetlib.batches_from_raw(
+        raws, trainlib.BATCH_SIZE, threefry.prng_key(2)), 3))
+    lr = trainlib.LEARNING_RATE
+    for dtype in (torch.float32, torch.float64):
+        runs = []
+        for device in (dev, torch.device("cpu")):
+            net = weights.load_iisptnet(device=device).to(dtype)
+            step = trainlib.make_train_step(
+                net, torch.optim.Adam(net.parameters(), lr=lr))
+            losses, grads = [], None
+            t0 = time.time()
+            for x, y in batches:
+                losses.append(float(step(x.to(device, dtype), y.to(device, dtype))))
+                if grads is None:
+                    grads = {k: p.grad.to("cpu", torch.float64)
+                             for k, p in net.named_parameters()}
+            tensors = {k: v.to("cpu", torch.float64)
+                       for k, v in net.state_dict().items() if v.is_floating_point()}
+            runs.append((losses, grads, tensors, time.time() - t0))
+        (lg, gg, sg, tg), (lc, gc, sc, tc) = runs
+        rel = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+        grad_rel = {k: rel(gg[k], gc[k]) for k in gc}
+        state_rel = {k: rel(sg[k], sc[k]) for k in sc}
+        stats_rel = {k: v for k, v in state_rel.items() if ".running_" in k}
+        params_rel = {k: v for k, v in state_rel.items() if ".running_" not in k}
+        # Adam moves every parameter by about lr a step whatever its
+        # gradient's size: the parameters' gap against that movement
+        moved = max(float((sg[k] - sc[k]).abs().max()) for k in params_rel) / (3 * lr)
+        worst = lambda d: sorted(d.items(), key=lambda kv: -kv[1])[:4]
+        tag = "fp32" if dtype == torch.float32 else "fp64"
+        line(f"train_step_card_vs_cpu_{tag}", losses_card=lg, losses_cpu=lc,
+             loss_max_rel=loss_rel, grad_step1_max_rel=max(grad_rel.values()),
+             grad_worst=worst(grad_rel), running_stats_max_rel=max(stats_rel.values()),
+             params_max_rel=max(params_rel.values()), params_worst=worst(params_rel),
+             params_gap_over_adam_movement=moved, seconds_card=tg, seconds_cpu=tc)
+        check(loss_rel <= 1e-4, f"train step {tag}: losses differ by {loss_rel}")
+        check(max(stats_rel.values()) <= 1e-3,
+              f"train step {tag}: running statistics {worst(stats_rel)}")
+        # in fp32 the gradients and the parameters are printed only: the
+        # weight gradients of the bottleneck convolutions are sums that
+        # cancel heavily, so each device's algorithm shows (the CPU's fp32
+        # against its fp64: 9.3e-4 of the max on conv.6; cuDNN picks
+        # FFT-based algorithms for some of them), and Adam then moves a
+        # parameter by a whole step of lr whatever its gradient's size
+        if dtype == torch.float64:
+            check(max(grad_rel.values()) <= 1e-3,
+                  f"train step fp64: gradients {worst(grad_rel)}")
+            check(max(params_rel.values()) <= 1e-3,
+                  f"train step fp64: parameters {worst(params_rel)}")
+
+    # (d) training from a flax-style initialization, measured and gated
+    state = trainlib.init_training(torch.Generator().manual_seed(0),
+                                   hemi_size=gen["hemi"], device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state, losses = trainlib.train(raws, state, threefry.prng_key(3),
+                                   max_epochs=1000, time_budget_s=120.0,
+                                   log=None, max_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    x, y = (t.to(dev) for t in batches[0])
+    step_ms = cuda_ms(lambda: state["step"](x, y), 20)
+    net = state["net"]
+    k = net.k
+    flops = (3 * trainlib.BATCH_SIZE * iisptnet.forward_flops(gen["hemi"], k)
+             - trainlib.BATCH_SIZE * 2 * gen["hemi"] ** 2 * 9 * 7 * k)
+    n_params = sum(p.numel() for p in net.parameters())
+    adam_bytes = n_params * 28   # reads p, g, m, v; writes p, m, v (fp32)
+    step_bound, step_by = bound(flops, adam_bytes + x.numel() * 4 + y.numel() * 4)
+    line("train_full_width", steps=len(losses), wall_seconds=secs,
+         steps_per_s=len(losses) / secs,
+         examples_per_s=len(losses) * trainlib.BATCH_SIZE / secs,
+         examples=len(raws), loss_first20=first, loss_last20=last,
+         loss_ratio=last / first, step_ms=step_ms, step_gflop=flops / 1e9,
+         step_bound_ms=step_bound, step_bound_by=step_by,
+         params=n_params, adam_mbytes=adam_bytes / 1e6,
+         adam_bound_ms=adam_bytes / PEAK_BYTES * 1e3,
+         max_memory_allocated_gb=peak / 1e9, power=smi)
+    check(np.isfinite(losses).all(), "non-finite training loss")
+    check(last < 0.9 * first,
+          f"training loss did not fall: first 20 {first}, last 20 {last}")
+    res["train_step"] = lambda: state["step"](x, y)
+
+    # (e) the checkpoints, each reloaded, against the net in memory on
+    # 121 probes of (b)
+    ck = os.path.join(REPO, "build", "chip_smoke_train")
+    os.makedirs(ck, exist_ok=True)
+    paths = {f: os.path.join(ck, f) for f in ("net.npz", "net.ckpt", "state.pt")}
+    trainlib.save_pretrained(paths["net.npz"], state)
+    trainlib.save_checkpoint(paths["net.ckpt"], state)
+    trainlib.save_state(paths["state.pt"], state, step=len(losses))
+    t = lambda key: torch.as_tensor(np.stack([r[key] for r in raws[:121]]),
+                                    device=dev)
+    x121, _ = nnx.probe_to_network_input(t("d"), t("n"), t("z"))
+
+    def infer(n):
+        n.eval()
+        with torch.no_grad(), iisptnet.fp32_convolutions(dev):
+            return n(x121)
+
+    y_mem = infer(net)
+    rounded = copy.deepcopy(net)
+    with torch.no_grad():
+        for v in rounded.state_dict().values():
+            if v.is_floating_point():
+                v.copy_(v.half().float())
+    y_npz = infer(weights.load_iisptnet(paths["net.npz"], device=dev))
+    y_pkl = infer(weights.iisptnet_from_flax(
+        trainlib.load_checkpoint(paths["net.ckpt"])).to(dev))
+    fresh = trainlib.init_training(torch.Generator().manual_seed(9),
+                                   hemi_size=gen["hemi"], device=dev)
+    fresh, step_count = trainlib.load_state(paths["state.pt"], fresh)
+    y_pt = infer(fresh["net"])
+    same = dict(torch_save=bool(torch.equal(y_pt, y_mem)),
+                pickle=bool(torch.equal(y_pkl, y_mem)),
+                npz_vs_float16_rounded=bool(torch.equal(y_npz, infer(rounded))))
+    line("train_checkpoints", probes=int(x121.shape[0]), identical=same,
+         npz_max_abs_vs_memory=float((y_npz - y_mem).abs().max()),
+         y_max=float(y_mem.abs().max()), state_step=step_count,
+         bytes={f: os.path.getsize(p) for f, p in paths.items()})
+    check(all(same.values()), f"a reloaded checkpoint differs: {same}")
+    check(step_count == len(losses), "save_state lost the step count")
+
+    sd128 = apilib.load_scene(os.path.join(REPO, "scenes", "atrium.pbrt"))
+    sd128.film.x_resolution = sd128.film.y_resolution = 128
+    (c, d, i, st), secs, n = counted(lambda: iispt.render_iile(
+        sd128, net=net, accel="bvh", device=dev, **IILE_SMALL))
+    ref = np.load(os.path.join(REPO, "tests", "golden", ORACLE[0])).astype(np.float64)
+    finite = all(bool(np.isfinite(im).all()) for im in (c, d, i))
+    line("train_render_atrium128_bvh", wall_seconds=secs, launches=n,
+         finite=finite, psnr_trained=psnr(c, ref),
+         psnr_pretrained=psnr(pretrained_img, ref),
+         means=[float(c.mean()), float(d.mean()), float(i.mean())])
+    check(finite, "non-finite image from the trained net")
+
+    # (f) the evaluation statistics of the committed pretrained net on
+    # held-out atrium probes
+    a_sd, a_scene, a_cam = atrium
+    coords = clitrain.probe_grid(a_sd.film.x_resolution, a_sd.film.y_resolution, 8)
+    raw, secs, n = counted(lambda: datasetlib.generate_examples(
+        a_scene, a_cam, camlib.KIND.get(a_sd.camera.kind, 0), threefry.prng_key(4),
+        torch.as_tensor(coords, device=dev), hemi_size=32, gt_spp=16,
+        accel="clusters"))
+    stats = evalstats.compare_predictions(raw, weights.load_iisptnet(device=dev))
+    line("train_evalstats_atrium", probes=int(coords.shape[0]),
+         valid=int(raw["valid"].sum()), gt_spp=16, wall_seconds=secs,
+         means=stats["means"], p_values=stats["p_values"])
+    line("train_phase", wall_seconds=time.time() - t_phase)
     return res
 
 
@@ -637,6 +937,9 @@ def main():
     # ---- 7. IILE, before any profiler session ----
     iile = iile_phase(dev, scene_path, smi, K1, K2)
 
+    # ---- 9. training, before any profiler session ----
+    train = train_phase(dev, smi, K1, K2, (sd, scene, cam), iile["bvh_combined"])
+
     # ---- 8. timing, bounds ----
     # the timed passes come first: a profiler session leaves tracing
     # overhead on the launches that follow it
@@ -812,6 +1115,17 @@ def main():
              "profile_iile512_task0.txt",
              ("profiled_task_ms", "unprofiled_task_ms"))
 
+    # 10 full-width train steps of phase 9 (batch 32), unprofiled and then
+    # profiled
+    ten_steps = lambda: [train["train_step"]() for _ in range(10)]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ten_steps()
+    torch.cuda.synchronize()
+    profiled("profile_train_10_steps", ten_steps, time.time() - t0,
+             "profile_train_10_steps.txt",
+             ("profiled_10_steps_ms", "unprofiled_10_steps_ms"))
+
     kernels = [
         dict(name="cluster_traverse", route="cuda",
              source="pbrt_v3_iile_tpu_torch/csrc/cluster_traverse.cu",
@@ -822,7 +1136,8 @@ def main():
              launches_per_pass=per_pass["clusters"]["cluster_traverse"],
              launches_per_pass_bvh=per_pass["bvh"]["cluster_traverse"],
              launches_iile=iile["clusters"]["cluster_traverse"],
-             launches_iile_per_task=iile["per_task"]["cluster_traverse"]),
+             launches_iile_per_task=iile["per_task"]["cluster_traverse"],
+             launches_train_generation_rep=train["generation"]["cluster_traverse"]),
         dict(name="bvh_traverse", route="cuda",
              source="pbrt_v3_iile_tpu_torch/csrc/bvh_traverse.cu",
              replaces="pbrt_v3_iile_tpu/ops/intersect_pallas.py:301",
@@ -832,7 +1147,8 @@ def main():
              launches_per_pass=per_pass["clusters"]["bvh_traverse"],
              launches_per_pass_bvh=per_pass["bvh"]["bvh_traverse"],
              launches_clusters_path=launches["bvh_traverse"],
-             launches_iile_bvh=iile["bvh"]["bvh_traverse"]),
+             launches_iile_bvh=iile["bvh"]["bvh_traverse"],
+             launches_train_dataset_bvh=train["gate_bvh"]["bvh_traverse"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

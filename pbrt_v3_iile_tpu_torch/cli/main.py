@@ -5,12 +5,18 @@ Usage:
       [--integrator path|directlighting|iispt] [--spp N] [--seed S] \
       [--accel bvh|clusters] [--compact] [--device cuda|cpu] \
       [--iileIndirect N] [--iileDirect N] [--iispt_hemi_size N] \
-      [--weights NPZ] [--outfile PATH]
+      [--weights NPZ] [--checkpoint FILE] [--iileControl DIR] \
+      [--outfile PATH]
 
 ``iispt`` renders with IILE and also writes ``iispt_direct.exr`` and
 ``iispt_indirect.exr`` beside the output, printing ``#INDPROGRESS!<f>``
 and ``#DIRECTPROGRESS!<f>`` as the tasks and direct passes finish, and
-``#FINISH!`` at the end, as the reference's launcher expects.
+``#FINISH!`` at the end, as the reference's launcher expects.  With
+``--iileControl DIR`` it also writes ``out_direct.pfm``,
+``out_indirect.pfm`` and ``out_combined.pfm`` there and prints
+``#REFRESH!`` (the reference's directoryControlThread, iispt.cpp:749-787).
+``--checkpoint`` renders with a trained net: a ``ml/train.py``
+checkpoint pickle, or a flat npz (``.npz``).
 
 Scenes are parsed by the port's own ``scene/api.py`` and images written
 through its ``utils/image.py`` (.pfm, .png tonemapped, .exr).
@@ -60,6 +66,11 @@ def main(argv=None):
     ap.add_argument("--weights", default=None,
                     help="IISPTNet npz (default: the committed pretrained "
                          "model)")
+    ap.add_argument("--checkpoint", default=None,
+                    help="IISPTNet checkpoint for iispt: a training pickle "
+                         "(ml/train.py save_checkpoint) or a flat .npz")
+    ap.add_argument("--iileControl", default=None,
+                    help="control directory for IILE's preview images")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--accel", default=None, choices=["bvh", "clusters"],
                     help="aggregate (default: clusters on CUDA, bvh on CPU)")
@@ -86,14 +97,28 @@ def main(argv=None):
             token = "#INDPROGRESS!" if phase == "indirect" else "#DIRECTPROGRESS!"
             print(f"{token}{done / total}", flush=True)
 
+        weights, net = args.weights, None
+        if args.checkpoint and args.checkpoint.lower().endswith(".npz"):
+            weights = args.checkpoint
+        elif args.checkpoint:
+            from ..ml import train as trainlib
+
+            net = trainlib.load_checkpoint(args.checkpoint)
         img, direct, indirect, stats = iisptlib.render_iile(
-            sd, weights=args.weights, seed=args.seed,
+            sd, weights=weights, net=net, seed=args.seed,
             indirect_tasks=args.iile_indirect, direct_samples=args.iile_direct,
             hemi_size=args.iispt_hemi_size, report=report, accel=args.accel,
             device=args.device)
         base = os.path.dirname(os.path.abspath(out))
         imglib.write_exr(os.path.join(base, "iispt_direct.exr"), direct)
         imglib.write_exr(os.path.join(base, "iispt_indirect.exr"), indirect)
+        if args.iileControl:
+            os.makedirs(args.iileControl, exist_ok=True)
+            for name, im in (("direct", direct), ("indirect", indirect),
+                             ("combined", img)):
+                imglib.write_pfm(os.path.join(args.iileControl,
+                                              f"out_{name}.pfm"), im)
+            print("#REFRESH!", flush=True)
         write_output(out, img)
         print("#FINISH!", flush=True)
     else:

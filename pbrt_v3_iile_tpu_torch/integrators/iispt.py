@@ -26,6 +26,7 @@ import time
 
 import torch
 
+from ..models import iisptnet
 from ..models import transforms as nnx
 from ..models import weights as weightlib
 from ..ops import bsdf as bsdflib
@@ -91,29 +92,11 @@ def _pixel_to_dir(x, y, right, up, look, hemi_size: int):
     return dc[..., 0:1] * right + dc[..., 1:2] * up + dc[..., 2:3] * look
 
 
-@contextlib.contextmanager
-def _fp32_convolutions(device):
-    """Full fp32 convolutions and products on the card (no TF32) inside
-    the block, the previous settings restored after it."""
-    if torch.device(device).type != "cuda":
-        yield
-        return
-    cudnn = torch.backends.cudnn
-    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                         deterministic=cudnn.deterministic, allow_tf32=False):
-            yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
-
-
 def probe_radiance(net, gb: probelib.ProbeGBuffer, probe_valid):
     """The probes' G-buffers -> indirect radiance maps (P,H,W,3) through
     IISPTNet in fp32; invalid probes give zero maps."""
     x_in, aux = nnx.probe_to_network_input(gb.intensity, gb.normals, gb.distance)
-    with torch.no_grad(), _fp32_convolutions(x_in.device):
+    with torch.no_grad(), iisptnet.fp32_convolutions(x_in.device):
         y = net(x_in)
     R = nnx.network_output_to_radiance(y, aux)
     return torch.where(probe_valid[:, None, None, None], R, torch.zeros_like(R))
@@ -346,7 +329,7 @@ def direct_passes(sd, scene, cam, dkey, direct_samples: int, accel: str,
 # the full IILE render
 # ---------------------------------------------------------------------------
 
-def render_iile(sd, weights: str = None, seed: int = 0,
+def render_iile(sd, weights: str = None, net=None, seed: int = 0,
                 indirect_tasks: int = 16, direct_samples: int = 16,
                 hemi_size: int = 32, report=None, accel: str = None,
                 device="cuda", span=_no_span):
@@ -354,14 +337,23 @@ def render_iile(sd, weights: str = None, seed: int = 0,
     ``device`` (the card unless the caller asks for the CPU).
 
     weights: an IISPTNet npz (default: the committed pretrained model; a
-    missing file raises).  accel None: ``clusters`` on CUDA, ``bvh`` on the
-    CPU, as ``make_integrator_config`` resolves it.  report(phase, done,
+    missing file raises).  net: a trained net instead, an ``IISPTNet``
+    (switched to eval mode and moved to ``device``) or flax-style
+    variables {"params", "batch_stats"} (numpy trees, as
+    ``ml/train.py::load_checkpoint`` returns them).  accel None:
+    ``clusters`` on CUDA, ``bvh`` on the CPU, as ``make_integrator_config``
+    resolves it.  report(phase, done,
     total) is called after each indirect task and direct pass; span is
     passed to ``run_task``.  Returns (combined, direct, indirect) (H,W,3)
     numpy images and a stats dict."""
     device = torch.device(device)
     accel = renderlib.resolve_accel(sd, accel, device)
-    net = weightlib.load_iisptnet(weights, device)
+    if net is None:
+        net = weightlib.load_iisptnet(weights, device)
+    elif isinstance(net, dict):
+        net = weightlib.iisptnet_from_flax(net).to(device)
+    else:
+        net = net.eval().to(device)
     scene, cam = renderlib.build(sd, device, with_clusters=accel == "clusters")
     W, H = sd.film.x_resolution, sd.film.y_resolution
     key = threefry.prng_key(seed)

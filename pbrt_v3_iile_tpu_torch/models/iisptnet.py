@@ -3,9 +3,16 @@
 
 A 7 -> 3 channel U-Net on hemispherical G-buffers: encoders of K, 2K, 4K
 and 8K channels with 2x2 max-pool downsamples, LeakyReLU(0.2) then
-BatchNorm (eval mode), bilinear 2x upsamples, skip concatenations,
-3x3 decoder blocks, a 1x1 convolution and a ReLU.  The interface takes
-and returns (B, H, W, C) as the reference does; inside it runs NCHW.
+BatchNorm, bilinear 2x upsamples, skip concatenations, 3x3 decoder
+blocks, a 1x1 convolution and a ReLU.  The interface takes and returns
+(B, H, W, C) as the reference does; inside it runs NCHW.
+
+In training mode (``net.train()``) BatchNorm follows flax's
+``nn.BatchNorm(momentum=0.9)``: the batch is normalized by its biased
+variance, computed as E[x^2] - E[x]^2 and clipped at zero, and the
+running statistics move by 0.1 towards the batch mean and that same
+biased variance (``torch.nn.BatchNorm2d`` would store the unbiased
+one).  ``init_params`` draws the weights as flax initializes them.
 
 The reference's decoder blocks are flax ``ConvTranspose(3x3, "SAME")`` at
 stride 1, which does not flip its kernel: each is exactly a 3x3
@@ -17,11 +24,16 @@ is an ``nn.Conv2d``.  Layer names follow flax's creation order
 
 from __future__ import annotations
 
+import contextlib
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 K = 64
+BN_MOMENTUM = 0.9    # flax's convention: the running stats keep 0.9
+BN_EPS = 1e-5
 
 def layer_shapes(k: int = K):
     """(in, out) channels of the convolutions and the decoder blocks, and
@@ -34,6 +46,27 @@ def layer_shapes(k: int = K):
         bn=[2 * k, 4 * k, 8 * k, 4 * k, 2 * k])
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm over (B, C, H, W) with flax's training semantics (module
+    docstring); eval mode normalizes by the running statistics."""
+
+    def __init__(self, c: int):
+        super().__init__(c, eps=BN_EPS)
+
+    def forward(self, x):
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+
+
 class IISPTNet(nn.Module):
     def __init__(self, k: int = K):
         super().__init__()
@@ -44,8 +77,7 @@ class IISPTNet(nn.Module):
             for i, (ci, co) in enumerate(shapes["conv"]))
         self.convt = nn.ModuleList(nn.Conv2d(ci, co, 3, padding=1)
                                    for ci, co in shapes["convt"])
-        self.bn = nn.ModuleList(nn.BatchNorm2d(c, eps=1e-5)
-                                for c in shapes["bn"])
+        self.bn = nn.ModuleList(BatchNorm(c) for c in shapes["bn"])
 
     def forward(self, x):
         """x: (B, H, W, 7) -> (B, H, W, 3); H and W divisible by 8."""
@@ -80,3 +112,47 @@ def forward_flops(hemi_size: int = 32, k: int = K) -> int:
     for (ci, co), n in zip(s["convt"], side[1]):
         flops += 2 * n * n * 9 * ci * co
     return flops
+
+
+def init_params(net: IISPTNet, generator: torch.Generator) -> IISPTNet:
+    """Draw ``net``'s weights as flax initializes ``IISPTNet``: every
+    convolution kernel from ``lecun_normal`` (a normal truncated at 2
+    standard deviations, scaled so that its standard deviation is
+    1/sqrt(fan_in), fan_in = kernel area x input channels), zero biases,
+    BatchNorm scale 1 and bias 0, running mean 0 and variance 1.  The
+    draws come from ``generator`` on the CPU (the distribution of flax's
+    initialization, not its bits).  Returns ``net``."""
+    # flax's variance_scaling: the truncated normal's stddev is divided by
+    # that of a standard normal truncated to [-2, 2]
+    trunc_std = 0.87962566103423978
+    with torch.no_grad():
+        for conv in (*net.conv, *net.convt):
+            w = conv.weight
+            fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+            std = 1.0 / math.sqrt(fan_in) / trunc_std
+            draw = torch.empty(w.shape, dtype=torch.float32)
+            nn.init.trunc_normal_(draw, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+            w.copy_(draw)
+            conv.bias.zero_()
+        for bn in net.bn:
+            bn.reset_parameters()
+    return net
+
+
+@contextlib.contextmanager
+def fp32_convolutions(device):
+    """Full fp32 convolutions and products on the card (no TF32) inside
+    the block, the previous settings restored after it."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    cudnn = torch.backends.cudnn
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32

@@ -1,12 +1,15 @@
-"""IISPTNet weights carried across from the flax checkpoint format.
+"""IISPTNet weights in the flax checkpoint format, both ways.
 
-The source is the flat npz that the JAX package's trainer writes
+The format is the flat npz that the JAX package's trainer writes
 (``ml/train.py::save_pretrained``): keys ``params/Conv_i/{kernel,bias}``
 (kernels HWIO), ``params/ConvTranspose_i/{kernel,bias}``,
 ``params/BatchNorm_i/{scale,bias}`` and ``batch_stats/BatchNorm_i/{mean,var}``,
-stored as float16 and widened to float32 here as the reference's loader
-does.  The file is read with numpy; nothing of the JAX package is
-imported.  A missing file raises: there is no random-weight fallback.
+stored as float16 and widened to float32 on reading as the reference's
+loader does.  ``flax_from_state_dict`` and ``save_pretrained`` write the
+same trees and file from an ``IISPTNet``, so the JAX package's
+``load_pretrained`` reads what the port trains.  Files are read and
+written with numpy; nothing of the JAX package is imported.  A missing
+file raises: there is no random-weight fallback.
 """
 
 from __future__ import annotations
@@ -65,6 +68,45 @@ def state_dict_from_flax(variables: dict) -> dict:
     return sd
 
 
+def flax_from_state_dict(sd: dict) -> dict:
+    """``IISPTNet`` state_dict -> {"params": ..., "batch_stats": ...}: nested
+    dicts of float32 numpy arrays under flax's names (HWIO kernels)."""
+    a = lambda t: t.detach().to("cpu", torch.float32).numpy().copy()
+    params, stats = {}, {}
+    for name, prefix in (("Conv", "conv"), ("ConvTranspose", "convt")):
+        i = 0
+        while f"{prefix}.{i}.weight" in sd:
+            params[f"{name}_{i}"] = {
+                "kernel": a(sd[f"{prefix}.{i}.weight"]).transpose(2, 3, 1, 0).copy(),
+                "bias": a(sd[f"{prefix}.{i}.bias"])}
+            i += 1
+    i = 0
+    while f"bn.{i}.weight" in sd:
+        params[f"BatchNorm_{i}"] = {"scale": a(sd[f"bn.{i}.weight"]),
+                                    "bias": a(sd[f"bn.{i}.bias"])}
+        stats[f"BatchNorm_{i}"] = {"mean": a(sd[f"bn.{i}.running_mean"]),
+                                   "var": a(sd[f"bn.{i}.running_var"])}
+        i += 1
+    return {"params": params, "batch_stats": stats}
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def save_pretrained(path: str, variables: dict):
+    """Write flax-style variables ({"params", "batch_stats"}) as the flat
+    float16 npz of the JAX package's ``ml/train.py::save_pretrained``."""
+    flat = _flatten({top: variables[top] for top in ("params", "batch_stats")})
+    np.savez_compressed(path, **{k: v.astype(np.float16) for k, v in flat.items()})
+
+
 def iisptnet_from_flax(variables: dict) -> IISPTNet:
     """An eval-mode ``IISPTNet`` (on the CPU) holding flax variables; the
     width K is read from the first convolution."""
@@ -85,8 +127,9 @@ def load_iisptnet_npz(path: str = None) -> dict:
     return state_dict_from_flax(_unflatten(flat))
 
 
-def load_iisptnet(path: str = None, device="cpu") -> IISPTNet:
-    """The eval-mode net with the weights of ``path`` on ``device``."""
+def load_iisptnet(path: str = None, device="cuda") -> IISPTNet:
+    """The eval-mode net with the weights of ``path`` on ``device`` (the
+    card unless the caller asks for the CPU)."""
     sd = load_iisptnet_npz(path)
     net = IISPTNet(k=sd["conv.0.weight"].shape[0])
     net.load_state_dict(sd)

@@ -10,7 +10,8 @@ the cluster kernel's n_cand, prim, t and any-hit validity.  The BVH kernel
 against the binary walker of the CPU path: prim ids equal on >= 99.9% of
 rays, t bit-equal where they agree, any-hit validity on >= 99.9%; the
 same on a soup with leaves of 6 and 10 triangles.  GPU
-renders against the CPU render: test_golden's criterion.
+renders against the CPU render: test_golden's criterion.  The train step on
+the card against the CPU step: see its docstring.
 """
 
 import os
@@ -238,3 +239,45 @@ def test_cuda_iile_matches_cpu_iile(gpu_scene):
     assert clu[3]["accel"] == "clusters" and k1.LAUNCHES > n1
     assert _golden_close(clu[2], gpu[2])
     assert abs(clu[0].mean() - gpu[0].mean()) < 0.02 * gpu[0].mean()
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu_step():
+    """The train step on the card against the same code on the CPU, from
+    the pretrained weights, 3 Adam steps of batch 4 on 8^2 hemispheres:
+    losses within 1e-4 relative, the first step's gradients and the
+    BatchNorm running statistics within 1e-3 of each tensor's max
+    |value|; in float64 every parameter too (in float32 Adam's normalized
+    update turns a near-zero gradient's rounding noise into a whole
+    step of lr)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from pbrt_v3_iile_tpu_torch.ml import train as trainlib
+    from pbrt_v3_iile_tpu_torch.models import weights
+
+    rng = np.random.default_rng(0)
+    data = [(torch.from_numpy(rng.normal(size=(4, 8, 8, 7))),
+             torch.from_numpy(np.abs(rng.normal(size=(4, 8, 8, 3)))))
+            for _ in range(3)]
+    for dtype in (torch.float32, torch.float64):
+        runs = []
+        for dev in ("cuda", "cpu"):
+            net = weights.load_iisptnet(device=dev).to(dtype)
+            step = trainlib.make_train_step(net, torch.optim.Adam(net.parameters(), lr=6e-5))
+            losses, grads = [], None
+            for x, y in data:
+                losses.append(float(step(x.to(dev, dtype), y.to(dev, dtype))))
+                if grads is None:
+                    grads = {k: p.grad.to("cpu", torch.float64)
+                             for k, p in net.named_parameters()}
+            runs.append((losses, grads, {k: v.to("cpu", torch.float64)
+                                         for k, v in net.state_dict().items()
+                                         if v.is_floating_point()}))
+        (lg, gg, sg), (lc, gc, sc) = runs
+        rel = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+        assert all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(lg, lc)), (lg, lc)
+        assert max(rel(gg[k], gc[k]) for k in gc) <= 1e-3
+        held = sc if dtype == torch.float64 else {k: v for k, v in sc.items()
+                                                   if ".running_" in k}
+        errs = {k: rel(sg[k], sc[k]) for k in held}
+        assert max(errs.values()) <= 1e-3, sorted(errs.items(), key=lambda kv: -kv[1])[:4]

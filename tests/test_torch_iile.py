@@ -58,7 +58,7 @@ def port():
     scene, cam = trender.build(sd, "cpu")
     return dict(sd=sd, scene=scene, cam=cam,
                 key=threefry.fold_in(threefry.prng_key(SEED), 1000),
-                net=tweights.load_iisptnet())
+                net=tweights.load_iisptnet(device="cpu"))
 
 
 @pytest.fixture(scope="module")

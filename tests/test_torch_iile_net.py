@@ -172,7 +172,7 @@ def test_iisptnet_full_width(flax_vars, shape):
     x = np.random.default_rng(6).normal(0.0, 1.0, shape).astype(np.float32)
     y_ref = np.asarray(jnet.IISPTNet().apply(flax_vars, jnp.asarray(x),
                                              train=False))
-    net = tweights.load_iisptnet()
+    net = tweights.load_iisptnet(device="cpu")
     with torch.no_grad():
         y = net(tt(x)).numpy()
     assert y.shape == y_ref.shape

@@ -1,9 +1,12 @@
 """The port imports neither jax nor the JAX package: with
 ``sys.modules["jax"]`` and ``sys.modules["pbrt_v3_iile_tpu"]`` set to None
-every module of pbrt_v3_iile_tpu_torch imports, a 4x4 scene parsed by
-the port's own ``scene/api.py`` renders, and the same scene at 8x8
-renders with IILE (1 task, 1 direct pass, 8x8 hemispheres, the
-pretrained IISPTNet read from its npz).
+every module of pbrt_v3_iile_tpu_torch imports (the training modules
+``ml/{losses,dataset,train,evalstats}``, ``utils/metrics`` and
+``cli/train`` among them), a 4x4 scene parsed by the port's own
+``scene/api.py`` renders, the same scene at 8x8 renders with IILE (1
+task, 1 direct pass, 8x8 hemispheres, the pretrained IISPTNet read from
+its npz), and a narrow net takes a train step on batches made by the
+port's dataset module.
 
 The check runs in a fresh interpreter, since the test process itself
 has jax loaded (tests/conftest.py).
@@ -23,6 +26,9 @@ import pbrt_v3_iile_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+assert {"pbrt_v3_iile_tpu_torch." + m for m in (
+    "ml.losses", "ml.dataset", "ml.train", "ml.evalstats", "utils.metrics",
+    "cli.train")} <= set(names)
 from pbrt_v3_iile_tpu_torch.scene import api as apilib
 from pbrt_v3_iile_tpu_torch.integrators import render
 sd = apilib.load_scene_string('''
@@ -47,6 +53,16 @@ imgs = iispt.render_iile(sd, indirect_tasks=1, direct_samples=1, hemi_size=8,
                          device="cpu")[:3]
 assert all(x.shape == (8, 8, 3) and np.isfinite(x).all() for x in imgs)
 assert imgs[0].mean() > 0   # one wall: the probes see no lit surface
+import torch
+from pbrt_v3_iile_tpu_torch.ml import dataset, train
+from pbrt_v3_iile_tpu_torch.ops import threefry
+state = train.init_training(torch.Generator().manual_seed(0), 8, device="cpu")
+rng = np.random.default_rng(0)
+raw = [{k: np.abs(rng.normal(size=(8, 8, 1 if k == "z" else 3))).astype(np.float32)
+        for k in "pdnz"} for _ in range(2)]
+state, losses = train.train(raw, state, threefry.prng_key(0), max_epochs=1,
+                            batch_size=4, log=None, max_steps=2)
+assert len(losses) == 2 and all(np.isfinite(losses))
 assert not any(m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
                for m, v in sys.modules.items() if v is not None)
 assert not any(m == "pbrt_v3_iile_tpu" or m.startswith("pbrt_v3_iile_tpu.")
