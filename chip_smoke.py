@@ -85,6 +85,23 @@ Phases (one line each):
      trained net, its PSNR beside the pretrained net's; (f) the
      evaluation statistics of the pretrained net on 64 held-out atrium
      probes, printed;
+  10. scenes as pbrt-v3 writes them (run after phase 9 and before phase
+     8's profiler sessions): (a) atrium with its Sampler line removed
+     (pbrt's default, halton) at 128^2, 64 spp, seed 3, on clusters,
+     then maxmindist (64 pixel samples) at the same settings, each
+     against the C++ image at the atrium-path tolerances, K1 launched;
+     (b) halton-global, ambientocclusion and whitted on atrium at 128^2,
+     16 spp, seed 0, on each accel, against the JAX package's renders of
+     the same settings (tests/golden/scenes128_*.npz, made by
+     tools/make_scenes_golden.py) at phase 7's tolerances, with K1 and
+     not K2 launched on clusters and K2 and not K1 on bvh; (c) the same
+     for scenes/atrium_features.pbrt (procedural textures, goniometric
+     and projection lights, no Sampler line) and a ptex scene; (d) atrium
+     128^2 checkpointed after 4 passes and resumed to 8, identical to
+     the unbroken 8-pass render; (e) measured, no threshold: atrium
+     512^2, three passes each of halton, ambientocclusion and whitted
+     on clusters (ms a pass, Mrays/s as path.py counts rays, launches a
+     pass) and the host seconds of the MaxMinDist search at 16 spp;
   8. timing (printed, no threshold): each kernel, its plain versions and
      the torch candidate tables K1 no longer needs, at the main-path
      shapes, by CUDA events, with each kernel's bound computed from this
@@ -104,6 +121,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -134,6 +152,9 @@ IILE_FULL = dict(indirect_tasks=16, direct_samples=16, hemi_size=32, seed=0)
 TRAIN_GOLDEN = "train_interior_v1_bvh_h32_g4_s4_s0.npz"
 TRAIN_GEN = dict(grid=14, gt_spp=32, hemi=32)
 TRAIN_STEPS = 300
+# phase 10: the JAX goldens of tools/make_scenes_golden.py, held at the
+# IILE gate's tolerances
+SCENES_GOLDEN = ("halton_global", "ao", "whitted", "features", "ptex")
 
 # the H100 SXM's published peaks (700 W): fp32 outside the tensor cores,
 # and HBM bandwidth
@@ -714,6 +735,136 @@ def train_phase(dev, smi, K1, K2, atrium, pretrained_img):
     return res
 
 
+def scene_from_golden(apilib, z):
+    """A scenes golden's scene parsed by the port (its Sampler line
+    dropped when the golden says so), with the golden's overrides."""
+    name = str(z["scene"])
+    base = os.path.join(REPO, "scenes")
+    if name.endswith(".pbrt"):
+        text = open(os.path.join(base, name)).read()
+        if bool(z["strip_sampler"]):
+            text = re.sub(r"(?m)^Sampler .*\n", "", text)
+    else:
+        text = name.replace("{repo}", REPO)
+    sd = apilib.load_scene_string(text, base)
+    for path, value in json.loads(str(z["overrides"])).items():
+        obj = sd
+        *head, last = path.split(".")
+        for h in head:
+            obj = getattr(obj, h)
+        setattr(obj, last, value)
+    return sd
+
+
+def scenes_phase(dev, smi, K1, K2):
+    """Phase 10: the default sampler, the other samplers, integrators,
+    textures and lights of pbrt-v3 scenes (a)-(d), and the 512^2 passes
+    measured (e).  Returns the launches a pass of (e)."""
+    from pbrt_v3_iile_tpu_torch.integrators import render as renderlib
+    from pbrt_v3_iile_tpu_torch.ops import lds, threefry
+    from pbrt_v3_iile_tpu_torch.scene import api as apilib
+
+    t_phase = time.time()
+    scenes = os.path.join(REPO, "scenes")
+    text = re.sub(r"(?m)^Sampler .*\n", "",
+                  open(os.path.join(scenes, "atrium.pbrt")).read())
+
+    def atrium(res):
+        sd = apilib.load_scene_string(text, scenes)
+        sd.film.x_resolution = sd.film.y_resolution = res
+        return sd
+
+    # (a) no Sampler line: halton; then maxmindist; against the C++ image
+    sd = atrium(128)
+    check(sd.sampler.kind == "halton", f"default sampler {sd.sampler.kind}")
+    for kind in ("halton", "maxmindist"):
+        sd.sampler.kind = kind
+        if kind == "maxmindist":
+            sd.sampler.pixel_samples = 64
+            t0 = time.time()
+            lds._maxmin_matrix(lds.maxmin_m(64))
+            line("maxmin_search_m6", host_seconds=time.time() - t0)
+        (img, st), secs, launches = run_counted(
+            lambda: renderlib.render(sd, spp=64, seed=3, device=dev), K1, K2)
+        oracle_check(f"scenes_{kind}128", img)
+        line(f"scenes_{kind}128_stats", wall_seconds=secs, launches=launches,
+             **st)
+        check(launches["cluster_traverse"] > 0, f"{kind}: K1 never launched")
+
+    # (b), (c): against the JAX package's renders, on each accel
+    for case in SCENES_GOLDEN:
+        z = np.load(os.path.join(REPO, "tests", "golden",
+                                 f"scenes128_{case}.npz"))
+        for accel in ("clusters", "bvh"):
+            sd = scene_from_golden(apilib, z)
+            (img, st), secs, launches = run_counted(
+                lambda: renderlib.render(sd, spp=int(z["spp"]),
+                                         seed=int(z["seed"]), accel=accel,
+                                         device=dev), K1, K2)
+            image_check(f"scenes_{case}128_{accel}", img, z["img"], *IILE_TOL)
+            line(f"scenes_{case}128_{accel}_stats", wall_seconds=secs,
+                 launches=launches, **st)
+            own, other = (("cluster_traverse", "bvh_traverse")
+                          if accel == "clusters"
+                          else ("bvh_traverse", "cluster_traverse"))
+            check(launches[own] > 0, f"{case} {accel}: {own} never launched")
+            check(launches[other] == 0,
+                  f"{case} {accel}: {other} launched {launches[other]}")
+
+    # (d) a film checkpoint resumes to the unbroken render exactly
+    sd = atrium(128)
+    sd.sampler.kind = "sobol"
+    ck = os.path.join(REPO, "build", "chip_smoke_film.npz")
+    os.makedirs(os.path.dirname(ck), exist_ok=True)
+    if os.path.exists(ck):
+        os.remove(ck)
+    full, _ = renderlib.render(sd, spp=8, seed=0, device=dev)
+    renderlib.render(sd, spp=4, seed=0, device=dev, checkpoint=ck,
+                     checkpoint_every=4)
+    resumed, _ = renderlib.render(sd, spp=8, seed=0, device=dev,
+                                  checkpoint=ck, checkpoint_every=4)
+    same = bool(np.array_equal(full, resumed))
+    line("scenes_film_checkpoint128", identical=same,
+         passes=int(np.load(ck)["passes"]))
+    check(same, "the resumed render differs from the unbroken one")
+
+    # (e) measured: the 512^2 passes of the new paths on clusters
+    key = threefry.prng_key(0)
+    per_pass = {}
+    for kind in ("halton", "ambientocclusion", "whitted"):
+        sd = atrium(512)
+        if kind != "halton":
+            sd.integrator.kind = kind
+        cfg = renderlib.make_integrator_config(sd, accel="clusters", device=dev)
+        scene, cam = renderlib.build(sd, dev, with_clusters=True)
+        run = renderlib.render_pass_fn(sd, cfg, dev)
+        float(run(scene, cam, key, 0)[0].sum())   # warmup pass
+        times, rays, k1, k2 = [], [], 0, 0
+        for p in range(1, 4):
+            a1, a2 = K1.LAUNCHES, K2.LAUNCHES
+            torch.cuda.synchronize()
+            t0 = time.time()
+            L, _, aux = run(scene, cam, key, p)
+            checksum = float(L.sum())                  # data-dependent sync
+            times.append(time.time() - t0)
+            rays.append(int(aux["rays"]))
+            k1 += K1.LAUNCHES - a1
+            k2 += K2.LAUNCHES - a2
+            check(np.isfinite(checksum), f"non-finite 512^2 {kind} pass")
+        per_pass[kind] = {"cluster_traverse": k1 / 3, "bvh_traverse": k2 / 3}
+        check(k1 > 0, f"512^2 {kind}: K1 never launched")
+        line(f"scenes512_{kind}_clusters", pass_ms=[t * 1e3 for t in times],
+             rays=rays, mrays_per_s=[n / t / 1e6 for n, t in zip(rays, times)],
+             launches_per_pass=per_pass[kind], power=smi)
+    t0 = time.time()
+    lds._MAXMIN_CACHE.pop(lds.maxmin_m(16), None)
+    lds._maxmin_matrix(lds.maxmin_m(16))
+    line("maxmin_search_16spp", m=lds.maxmin_m(16),
+         host_seconds=time.time() - t0)
+    line("scenes_phase", wall_seconds=time.time() - t_phase)
+    return per_pass
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
@@ -940,6 +1091,9 @@ def main():
     # ---- 9. training, before any profiler session ----
     train = train_phase(dev, smi, K1, K2, (sd, scene, cam), iile["bvh_combined"])
 
+    # ---- 10. scenes as pbrt-v3 writes them, before any profiler session ----
+    scenes_pp = scenes_phase(dev, smi, K1, K2)
+
     # ---- 8. timing, bounds ----
     # the timed passes come first: a profiler session leaves tracing
     # overhead on the launches that follow it
@@ -1137,7 +1291,9 @@ def main():
              launches_per_pass_bvh=per_pass["bvh"]["cluster_traverse"],
              launches_iile=iile["clusters"]["cluster_traverse"],
              launches_iile_per_task=iile["per_task"]["cluster_traverse"],
-             launches_train_generation_rep=train["generation"]["cluster_traverse"]),
+             launches_train_generation_rep=train["generation"]["cluster_traverse"],
+             **{f"launches_per_pass_{k}": v["cluster_traverse"]
+                for k, v in scenes_pp.items()}),
         dict(name="bvh_traverse", route="cuda",
              source="pbrt_v3_iile_tpu_torch/csrc/bvh_traverse.cu",
              replaces="pbrt_v3_iile_tpu/ops/intersect_pallas.py:301",
@@ -1148,7 +1304,9 @@ def main():
              launches_per_pass_bvh=per_pass["bvh"]["bvh_traverse"],
              launches_clusters_path=launches["bvh_traverse"],
              launches_iile_bvh=iile["bvh"]["bvh_traverse"],
-             launches_train_dataset_bvh=train["gate_bvh"]["bvh_traverse"]),
+             launches_train_dataset_bvh=train["gate_bvh"]["bvh_traverse"],
+             **{f"launches_per_pass_{k}": v["bvh_traverse"]
+                for k, v in scenes_pp.items()}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -2,11 +2,19 @@
 
 Usage:
   python -m pbrt_v3_iile_tpu_torch.cli.main scene.pbrt [out.pfm] \
-      [--integrator path|directlighting|iispt] [--spp N] [--seed S] \
-      [--accel bvh|clusters] [--compact] [--device cuda|cpu] \
+      [--integrator path|directlighting|whitted|ambientocclusion|iispt] \
+      [--spp N] [--seed S] [--accel bvh|clusters] [--compact] \
+      [--device cuda|cpu] [--quick] [--verbose | --quiet] [--stats] \
+      [--filmCheckpoint FILE [--checkpointEvery N]] \
       [--iileIndirect N] [--iileDirect N] [--iispt_hemi_size N] \
       [--weights NPZ] [--checkpoint FILE] [--iileControl DIR] \
       [--outfile PATH]
+
+``--quick`` renders at a quarter of the resolution (at least 64) and a
+quarter of the samples; ``--stats`` prints the render's stats as JSON
+and the per-stage wall times and counters of ``utils/stats.py`` on
+stderr; ``--filmCheckpoint`` saves the film every ``--checkpointEvery``
+passes and resumes from the file when it exists.
 
 ``iispt`` renders with IILE and also writes ``iispt_direct.exr`` and
 ``iispt_indirect.exr`` beside the output, printing ``#INDPROGRESS!<f>``
@@ -55,12 +63,14 @@ def main(argv=None):
     ap.add_argument("--spp", type=int, default=None,
                     help="override the sampler's pixelsamples")
     ap.add_argument("--integrator", default=None,
-                    choices=["path", "directlighting", "iispt"],
+                    choices=["path", "directlighting", "whitted",
+                             "ambientocclusion", "iispt"],
                     help="override the scene's integrator")
-    ap.add_argument("--iileIndirect", type=int, default=16,
-                    dest="iile_indirect", help="IILE indirect tasks")
-    ap.add_argument("--iileDirect", type=int, default=16,
-                    dest="iile_direct", help="IILE progressive direct passes")
+    ap.add_argument("--iileIndirect", "--iileIndirectTasks", type=int,
+                    default=16, dest="iile_indirect", help="IILE indirect tasks")
+    ap.add_argument("--iileDirect", "--iileDirectSamples", type=int,
+                    default=16, dest="iile_direct",
+                    help="IILE progressive direct passes")
     ap.add_argument("--iispt_hemi_size", type=int, default=32,
                     help="IILE probe hemisphere resolution")
     ap.add_argument("--weights", default=None,
@@ -78,16 +88,34 @@ def main(argv=None):
                     help="compacted-wavefront path loop")
     ap.add_argument("--device", default="cuda", help="torch device")
     ap.add_argument("--stats", action="store_true",
-                    help="print render stats as JSON on stderr")
+                    help="print render stats and per-stage times on stderr")
+    ap.add_argument("--quick", action="store_true",
+                    help="quarter resolution, a quarter of the samples")
+    ap.add_argument("--verbose", action="store_true", help="verbose logging")
+    ap.add_argument("--quiet", action="store_true", help="errors only")
+    ap.add_argument("--filmCheckpoint", default=None,
+                    help="film checkpoint file for resumable renders")
+    ap.add_argument("--checkpointEvery", type=int, default=16,
+                    help="passes between film checkpoints")
     args = ap.parse_args(argv)
 
     from ..scene import api as apilib
-
     from ..integrators import render as renderlib
+    from ..utils import log as loglib
+    from ..utils import stats as statslib
 
+    if args.verbose:
+        loglib.set_verbosity(loglib.VERBOSE)
+    elif args.quiet:
+        loglib.set_verbosity(loglib.ERROR)
+    statslib.enable(args.stats)
     sd = apilib.load_scene(args.scene)
     if args.integrator:
         sd.integrator.kind = args.integrator
+    if args.quick:
+        sd.film.x_resolution = max(64, sd.film.x_resolution // 4)
+        sd.film.y_resolution = max(64, sd.film.y_resolution // 4)
+        sd.sampler.pixel_samples = max(1, sd.sampler.pixel_samples // 4)
     out = args.outfile or args.out or sd.film.filename
     if sd.integrator.kind == "iispt":
         from ..integrators import iispt as iisptlib
@@ -124,10 +152,13 @@ def main(argv=None):
     else:
         img, stats = renderlib.render(sd, spp=args.spp, seed=args.seed,
                                       accel=args.accel, compact=args.compact,
-                                      device=args.device)
+                                      device=args.device,
+                                      checkpoint=args.filmCheckpoint,
+                                      checkpoint_every=args.checkpointEvery)
         write_output(out, img)
     if args.stats:
         print(json.dumps(stats), file=sys.stderr)
+        print(statslib.report(), file=sys.stderr)
     print(f"wrote {out}")
     return 0
 

@@ -41,7 +41,6 @@ DEMO_SCENE = """
 LookAt 0 2.5 -6  0 2.5 0  0 1 0
 Camera "perspective" "float fov" [60]
 Film "image" "integer xresolution" [128] "integer yresolution" [128]
-Sampler "sobol" "integer pixelsamples" [16]
 Integrator "iispt" "integer maxdepth" [5]
 WorldBegin
 AttributeBegin

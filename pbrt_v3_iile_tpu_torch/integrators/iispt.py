@@ -143,7 +143,8 @@ def _mis_stage(scene, cam, R, probe_valid, cam_look, cam_orig, right, up,
                                  min=1e-12)
 
     # ---- shading data, broadcast over the slots (views, no copies) ----
-    params = bsdflib.gather_params(scene, torch.clamp(ff_mat, min=0), uv=ff_uv)
+    params = bsdflib.gather_params(scene, torch.clamp(ff_mat, min=0), uv=ff_uv,
+                                   p=ff_p)
     ns = ff_n
     t_f, b_f = vm.coordinate_system(ns)
     wo_l = vm.to_local(ff_wo, t_f, b_f, ns)

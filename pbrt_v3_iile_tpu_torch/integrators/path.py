@@ -34,6 +34,7 @@ from ..ops import lights as lightlib
 from ..ops import samplers as smplr
 from ..ops import sampling as smp
 from ..scene.api import LIGHT_INFINITE
+from ..utils import stats as statslib
 from ..utils import vecmath as vm
 
 
@@ -103,8 +104,8 @@ def trace_paths(scene, o0, d0, key, cfg: PathConfig, beta0=None,
     st = _initial_state(o0, d0, beta0)
     aux = {}
     for b in range(cfg.max_depth + 1):
-        st = _bounce(scene, st, b, key, cfg, sample_ctx,
-                     collect_aux=collect_aux and b == 0)
+        st = statslib.timed(f"path/bounce[{b}]", _bounce, scene, st, b, key,
+                            cfg, sample_ctx, collect_aux=collect_aux and b == 0)
         if collect_aux and b == 0:
             aux = dict(distance=st.aux_t, normal=st.aux_n)
     L = torch.where(torch.isfinite(st.L), st.L, torch.zeros_like(st.L))
@@ -163,8 +164,9 @@ def _trace_paths_compact(scene, o0, d0, key, cfg: PathConfig, beta0,
     st, pix, ctx, dropped = resort(st, pix, ctx, dropped, N, 0)
     aux = {}
     for b in range(cfg.max_depth + 1):
-        st = _bounce(scene, st, b, key, cfg, ctx, presorted=True,
-                     collect_aux=collect_aux and b == 0)
+        st = statslib.timed(f"path/bounce[{b}]", _bounce, scene, st, b, key,
+                            cfg, ctx, presorted=True,
+                            collect_aux=collect_aux and b == 0)
         if collect_aux and b == 0:
             # the probe G-buffer back in lane order (the lanes are sorted)
             dist = torch.full((N,), -1.0, dtype=torch.float32, device=dev)
@@ -274,7 +276,7 @@ def _bounce(scene, st: PathState, bounce: int, key, cfg: PathConfig,
     cone_r = vm.length(it.p - scene.tex_cone_o[None, :]) * scene.tex_theta
     tex_w = torch.where(is_tri_w, cone_r * dens_w, torch.zeros_like(cone_r))
     params = bsdflib.gather_params(scene, torch.clamp(it.mat, min=0), uv=it.uv,
-                                   tex_width=tex_w)
+                                   p=it.p, tex_width=tex_w, face=it.face)
     alive = alive & ~bsdflib.is_black(params)
 
     # ---------- NEE ----------

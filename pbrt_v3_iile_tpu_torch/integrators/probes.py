@@ -88,7 +88,7 @@ def find_first_nonspecular(scene, o, d, key, accel: str = "bvh"):
         it = isect.make_interaction(scene, o, d, hit)
 
         params = bsdflib.gather_params(scene, torch.clamp(it.mat, min=0),
-                                       uv=it.uv)
+                                       uv=it.uv, p=it.p)
         is_spec = (params.kind == MAT_MIRROR) | (params.kind == MAT_GLASS)
         stop_here = alive & hit.valid & ~is_spec
 

@@ -1,16 +1,21 @@
 """Render driver: scene file -> device scene -> passes -> film (port of
-``integrators/render.py``: the ``path`` and ``directlighting``
-integrators; ``iispt`` renders through ``integrators/iispt.py``).
+``integrators/render.py``: the ``path``, ``directlighting``, ``whitted``
+and ``ambientocclusion`` integrators; ``iispt`` renders through
+``integrators/iispt.py``).
 
 Each pass is one wavefront of 1 spp over the image (or over row chunks
 when the image exceeds ``max_wave`` rays); passes loop on the host and
-the film accumulates on the device.
+the film accumulates on the device.  A film checkpoint (the JAX
+package's npz keys ``rgb``, ``weight``, ``passes``, ``seed``) lets a
+render resume.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
+import numpy as np
 import torch
 
 from ..ops import camera as camlib
@@ -18,6 +23,8 @@ from ..ops import film as filmlib
 from ..ops import samplers as smplr
 from ..ops import threefry
 from ..scene import device as devlib
+from ..utils import stats as statslib
+from . import ao as aolib
 from . import path as pathlib_
 
 COMPACT_SCHEDULE = (1.0, 1.0, 0.5, 0.25, 0.25, 0.125)
@@ -37,8 +44,11 @@ def resolve_accel(sd, accel: str = None, device="cuda") -> str:
 def make_integrator_config(sd, accel: str = None, device="cuda"):
     """Resolve the integrator's config for ``device`` (the card unless the
     caller asks for the CPU).  ``path`` and ``iispt`` (the path integrator
-    settings; IILE's own stages set theirs) and ``directlighting``
-    (specular paths only, all lights sampled under the "all" strategy)."""
+    settings; IILE's own stages set theirs), ``directlighting`` (specular
+    paths only, all lights sampled under the "all" strategy), ``whitted``
+    (as the reference maps it: every light sampled, specular paths only)
+    and ``ambientocclusion`` (only the accel is read: ``integrators/ao.py``
+    traces it)."""
     kind = sd.integrator.kind
     accel = resolve_accel(sd, accel, device)
     if kind in ("path", "iispt"):
@@ -47,13 +57,16 @@ def make_integrator_config(sd, accel: str = None, device="cuda"):
             rr_threshold=sd.integrator.rr_threshold,
             accel=accel,
             spatial_lights=sd.integrator.light_strategy == "spatial")
-    if kind == "directlighting":
+    if kind in ("directlighting", "whitted"):
         return pathlib_.PathConfig(
             max_depth=sd.integrator.max_depth,
-            nee_all=sd.integrator.dl_strategy == "all", direct_only=True,
-            accel=accel)
+            nee_all=kind == "whitted" or sd.integrator.dl_strategy == "all",
+            direct_only=True, accel=accel)
+    if kind == "ambientocclusion":
+        return pathlib_.PathConfig(max_depth=sd.integrator.max_depth,
+                                   accel=accel)
     raise NotImplementedError(
-        f"integrator {kind!r} is not ported yet (ROADMAP Queue 1, slice 3)")
+        f"integrator {kind!r} is not ported yet (ROADMAP Queue 1)")
 
 
 def build(sd, device, with_clusters: bool = None):
@@ -110,19 +123,43 @@ def render_pass_fn(sd, cfg, device, chunk_rows: int = 0):
 
     def run(scene, cam, key, pass_idx: int, row0: int = 0):
         o, d, jitter, k, ctx = prep(cam, key, pass_idx, row0)
-        L, aux = pathlib_.trace_paths(scene, o, d, k, cfg, sample_ctx=ctx)
+        if sd.integrator.kind == "ambientocclusion":
+            L = aolib.trace_ao(scene, o, d, k, accel=cfg.accel,
+                               cos_sample=sd.integrator.cos_sample)
+            aux = {"rays": torch.tensor(2 * CH * W, device=o.device)}
+        else:
+            L, aux = pathlib_.trace_paths(scene, o, d, k, cfg, sample_ctx=ctx)
         return L.reshape(CH, W, 3), jitter.reshape(CH, W, 2), aux
 
     return run
 
 
+def save_film_checkpoint(path: str, film, passes_done: int, seed: int):
+    """The film state after passes_done passes, as the JAX package writes
+    it (npz: rgb, weight, passes, seed), so either package resumes it."""
+    np.savez(path, rgb=film.rgb.cpu().numpy(), weight=film.weight.cpu().numpy(),
+             passes=passes_done, seed=seed)
+
+
+def load_film_checkpoint(path: str, device="cuda"):
+    """-> (Film on device, passes done, seed)."""
+    z = np.load(path)
+    film = filmlib.Film(rgb=torch.as_tensor(z["rgb"], device=device),
+                        weight=torch.as_tensor(z["weight"], device=device))
+    return film, int(z["passes"]), int(z["seed"])
+
+
 def render(sd, spp: int = None, seed: int = 0, max_wave: int = 1 << 16,
            accel: str = None, compact: bool = False, device="cuda",
-           cluster_maxc: int = None):
+           cluster_maxc: int = None, checkpoint: str = None,
+           checkpoint_every: int = 0, report=None):
     """Full render -> (image (H,W,3) np.ndarray, stats dict).
 
     compact: the compacted-wavefront loop with the bench schedule
-    (1, 1, .5, .25, .25, .125).  Waves are cut to about max_wave rays."""
+    (1, 1, .5, .25, .25, .125).  Waves are cut to about max_wave rays.
+    checkpoint: a film checkpoint file, resumed from when it exists (its
+    seed must be this render's) and written every checkpoint_every
+    passes.  report(passes_done, spp, film) is called after each pass."""
     device = torch.device(device)
     cfg = make_integrator_config(sd, accel=accel, device=device)
     if compact:
@@ -141,21 +178,37 @@ def render(sd, spp: int = None, seed: int = 0, max_wave: int = 1 << 16,
     run = render_pass_fn(sd, cfg, device, chunk_rows=chunk_rows)
     key = threefry.prng_key(seed)
     film = filmlib.new_film(H, W, device)
+    start_pass = 0
+    if checkpoint and os.path.exists(checkpoint):
+        film, start_pass, ck_seed = load_film_checkpoint(checkpoint, device)
+        if ck_seed != seed:
+            raise ValueError("checkpoint was rendered with a different seed")
     fkw = dict(filter_name=sd.film.filter_name, xw=sd.film.filter_xwidth,
                yw=sd.film.filter_ywidth, alpha=sd.film.filter_alpha,
                B=sd.film.filter_b, C=sd.film.filter_c, tau=sd.film.filter_tau)
     ray_parts = []
     t0 = time.time()
-    for p in range(spp):
+    for p in range(start_pass, spp):
         Ls, Js = [], []
-        for row0 in range(0, H, CH):
-            L, jitter, aux = run(scene, cam, key, p, row0)
-            Ls.append(L)
-            Js.append(jitter)
-            ray_parts.append(aux["rays"])
-        film = filmlib.add_sample_image(film, torch.cat(Ls), torch.cat(Js), **fkw)
+        with statslib.stage("render/pass", sync=Ls):
+            for row0 in range(0, H, CH):
+                L, jitter, aux = run(scene, cam, key, p, row0)
+                Ls.append(L)
+                Js.append(jitter)
+                ray_parts.append(aux["rays"])
+        # (a stage's sync waits for all of its device's work, this add too)
+        with statslib.stage("render/film_add", sync=Ls):
+            film = filmlib.add_sample_image(film, torch.cat(Ls), torch.cat(Js),
+                                            **fkw)
+        if checkpoint and checkpoint_every and (p + 1) % checkpoint_every == 0:
+            save_film_checkpoint(checkpoint, film, p + 1, seed)
+        if report is not None:
+            report(p + 1, spp, film)
     img = filmlib.resolve(film).cpu().numpy()
     total_rays = int(torch.stack(ray_parts).sum()) if ray_parts else 0
+    if statslib.enabled():
+        statslib.add_counter("rays/total", total_rays)
+        statslib.add_counter("pixels x passes", (spp - start_pass) * H * W)
     dt = time.time() - t0
     return img, dict(seconds=dt, rays=total_rays,
                      mrays_per_s=total_rays / max(dt, 1e-9) / 1e6)

@@ -47,8 +47,12 @@ def roughness_to_alpha(rough):
             + 0.0171201 * x ** 3 + 0.000640711 * x ** 4)
 
 
-def gather_params(scene, mat_id, uv=None, tex_width=None) -> BsdfParams:
-    """Material SoA gather plus texture evaluation at the hit."""
+def gather_params(scene, mat_id, uv=None, p=None, tex_width=None,
+                  face=None) -> BsdfParams:
+    """Material SoA gather plus texture evaluation at the hit: uv (N,2)
+    and the world point p (N,3; zeros when None) feed the textures,
+    tex_width (N,) is the ray cone's UV footprint, face (N,) the ptex face
+    index."""
     from ..scene import textures as texlib
 
     mid = mat_id.long()
@@ -61,9 +65,12 @@ def gather_params(scene, mat_id, uv=None, tex_width=None) -> BsdfParams:
     sigma = g(scene.mat_sigma)
     if uv is not None and scene.textures.kind.shape[0] > 1:
         tt = scene.textures
+        if p is None:
+            p = torch.zeros(uv.shape[:-1] + (3,), dtype=uv.dtype,
+                            device=uv.device)
         kd_t, ks_t = g(scene.mat_kd_tex), g(scene.mat_ks_tex)
         sg_t, ro_t = g(scene.mat_sigma_tex), g(scene.mat_rough_tex)
-        ev = lambda tid: texlib.eval_texture(tt, tid, uv, tex_width)
+        ev = lambda tid: texlib.eval_texture(tt, tid, uv, p, tex_width, face)
         kd = torch.where((kd_t >= 0)[..., None], ev(kd_t), kd)
         ks = torch.where((ks_t >= 0)[..., None], ev(ks_t), ks)
         sigma = torch.where(sg_t >= 0, ev(sg_t)[..., 0], sigma)

@@ -230,6 +230,7 @@ class Interaction:
     mat: torch.Tensor    # (N,) i32
     light: torch.Tensor  # (N,) i32 area light id or -1
     valid: torch.Tensor  # (N,) bool
+    face: torch.Tensor   # (N,) i32 ptex face index (0 on spheres)
 
 
 def make_interaction(scene, o, d, hit: Hit) -> Interaction:
@@ -263,4 +264,6 @@ def make_interaction(scene, o, d, hit: Hit) -> Interaction:
         p=p, ng=torch.where(is3, ng_s, ng_t), ns=torch.where(is3, ng_s, ns_t),
         uv=torch.where(is3, uv_s, uv_t), wo=-d,
         mat=torch.where(is_sph, mat_s, mat_t),
-        light=torch.where(is_sph, light_s, light_t), valid=hit.valid)
+        light=torch.where(is_sph, light_s, light_t), valid=hit.valid,
+        face=torch.where(is_sph, 0, scene.tri_face[
+            torch.clamp(tri_id, max=scene.tri_face.shape[0] - 1)]))

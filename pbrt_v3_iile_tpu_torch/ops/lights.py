@@ -1,10 +1,12 @@
 """Wavefront light sampling, pdfs and emitted radiance (port of ``ops/lights.py``).
 
-Point, spot, distant, infinite (constant or env map), triangle-area and
-sphere-area lights, selected by the scene's power table or by its
+Point, spot, goniometric and projection (point lights scaled by a
+direction map), distant, infinite (constant or env map), triangle-area
+and sphere-area lights, selected by the scene's power table or by its
 spatial (per-voxel) table.  A triangle-mesh area light is one light with
 an area-weighted CDF over its triangles.  All masks, no dispatch.
-Goniometric and projection lights and ``sample_le`` are not ported yet.
+``sample_le``, ``pdf_le_dir`` and ``pdf_light_origin`` (only BDPT and
+SPPM use them) are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 
 from ..scene.api import (
     LIGHT_POINT, LIGHT_DISTANT, LIGHT_INFINITE, LIGHT_AREA_TRI,
-    LIGHT_AREA_SPHERE, LIGHT_SPOT,
+    LIGHT_AREA_SPHERE, LIGHT_SPOT, LIGHT_GONIO, LIGHT_PROJECTION,
 )
 from ..utils import vecmath as vm
 from . import sampling as smp
@@ -118,6 +120,9 @@ def sample_li(scene, light_id, p_ref, u3) -> LightSample:
     falloff = torch.where(cos_t >= cf, 1.0,
                           torch.where(cos_t <= ct, 0.0, (delta_f ** 2) ** 2))
     li_spot = li_point * falloff[:, None]
+    if scene.has_map_lights:
+        li_gonio = li_point * _gonio_scale(scene, lid, -wi_p)
+        li_proj = li_point * _projection_scale(scene, lid, -wi_p)
 
     # distant
     wi_d = ldir
@@ -189,6 +194,8 @@ def sample_li(scene, light_id, p_ref, u3) -> LightSample:
     is_inf = kind == LIGHT_INFINITE
     is_tri = kind == LIGHT_AREA_TRI
     is_sph = kind == LIGHT_AREA_SPHERE
+    is_gon = kind == LIGHT_GONIO
+    is_prj = kind == LIGHT_PROJECTION
 
     def sel(*pairs, default):
         out = default
@@ -198,10 +205,12 @@ def sample_li(scene, light_id, p_ref, u3) -> LightSample:
             out = torch.where(m, v, out)
         return out
 
-    is_ptlike = is_pt | is_spot
+    is_ptlike = is_pt | is_spot | is_gon | is_prj
     wi = sel((is_ptlike, wi_p), (is_dist, wi_d), (is_inf, wi_i),
              (is_tri, wi_t), (is_sph, wi_s), default=wi_i)
-    li = sel((is_pt, li_point), (is_spot, li_spot), (is_dist, L),
+    maps = (((is_gon, li_gonio), (is_prj, li_proj))
+            if scene.has_map_lights else ())
+    li = sel((is_pt, li_point), (is_spot, li_spot), *maps, (is_dist, L),
              (is_inf, li_inf), (is_tri, li_t), (is_sph, L), default=L)
     pdf = sel((is_ptlike | is_dist, ones), (is_inf, pdf_i),
               (is_tri, pdf_t), (is_sph, pdf_s), default=ones)
@@ -324,6 +333,54 @@ def environment_le(scene, d):
     if scene.has_env_map > 0:
         return out + _env_lookup(scene, d)
     return out
+
+
+def _light_map_lookup(scene, img_id, u, v):
+    """Bilinear lookup in the stacked light maps; 1 where img_id < 0."""
+    G, MH, MW = scene.light_img.shape[:3]
+    gi = torch.clamp(img_id, 0, G - 1).long()
+    fx = u * MW - 0.5
+    fy = v * MH - 0.5
+    x0 = torch.floor(fx).long()
+    y0 = torch.floor(fy).long()
+    ax = (fx - x0)[..., None]
+    ay = (fy - y0)[..., None]
+    x0c, x1c = torch.clamp(x0, 0, MW - 1), torch.clamp(x0 + 1, 0, MW - 1)
+    y0c, y1c = torch.clamp(y0, 0, MH - 1), torch.clamp(y0 + 1, 0, MH - 1)
+    flat = scene.light_img.reshape(-1, 3)
+    at = lambda x, y: flat[(gi * MH + y) * MW + x]
+    val = ((1 - ax) * (1 - ay) * at(x0c, y0c) + ax * (1 - ay) * at(x1c, y0c)
+           + (1 - ax) * ay * at(x0c, y1c) + ax * ay * at(x1c, y1c))
+    return torch.where((img_id >= 0)[..., None], val, torch.ones_like(val))
+
+
+def _gonio_scale(scene, lid, w):
+    """Goniophotometric scale for the world direction w leaving the light
+    (goniometric.h Scale: to light space, y and z swapped, a lat-long
+    lookup)."""
+    wl = torch.einsum("nij,nj->ni", scene.light_w2l[lid], w)
+    wl = wl / torch.clamp(vm.length(wl), min=1e-12)[..., None]
+    wl = torch.stack([wl[..., 0], wl[..., 2], wl[..., 1]], dim=-1)
+    theta = vm.spherical_theta(wl)
+    phi = vm.spherical_phi(wl)
+    return _light_map_lookup(scene, scene.light_img_id[lid], phi * smp.INV_2PI,
+                             theta / math.pi)
+
+
+def _projection_scale(scene, lid, w):
+    """Projection light's screen lookup for the world direction w
+    (projection.cpp Projection: a perspective projection into the fov
+    window, 0 outside it)."""
+    wl = torch.einsum("nij,nj->ni", scene.light_w2l[lid], w)
+    z = wl[..., 2]
+    ax = scene.light_proj_ax[lid]
+    ay = scene.light_proj_ay[lid]
+    zs = torch.where(torch.abs(z) > 1e-9, z, torch.full_like(z, 1e-9))
+    u = (wl[..., 0] / (zs * ax) + 1.0) * 0.5
+    v = (wl[..., 1] / (zs * ay) + 1.0) * 0.5
+    inside = (z > 1e-3) & (u >= 0) & (u <= 1) & (v >= 0) & (v <= 1)
+    val = _light_map_lookup(scene, scene.light_img_id[lid], u, 1.0 - v)
+    return torch.where(inside[..., None], val, torch.zeros_like(val))
 
 
 def finite_light_distribution(scene):

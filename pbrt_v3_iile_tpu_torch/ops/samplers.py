@@ -3,8 +3,12 @@
 Keys are threefry key pairs (``ops/threefry.py``) folded by (pass,
 bounce, purpose); the GlobalSampler context draws every integration
 dimension from Owen-scrambled (0,2)-sequences keyed by u32 hashes of
-(pixel, bounce, purpose).  There is no global generator state: keys are
-passed down explicitly, and both streams reproduce the reference's bits.
+(pixel, bounce, purpose), or under ``halton-global`` from permuted
+radical inverses of the pass index.  The pass index is one host value
+per wavefront, so the radical inverses and MaxMinDist points are
+computed once on the host and broadcast.  There is no global generator
+state: keys are passed down explicitly, and both streams reproduce the
+reference's bits.
 """
 
 from __future__ import annotations
@@ -72,10 +76,20 @@ def pixel_samples(kind: str, key, pixel_idx, pass_idx: int, spp: int):
         sy = lds.hash_u32(lds.u32(pixel_idx) ^ 0x85EBCA77)
         x, y = lds.sobol02(i, sx, sy)
         return torch.stack([x, y], dim=-1)
-    if kind in LD_KINDS:
-        raise NotImplementedError(
-            f"sampler {kind!r} is not ported yet (ROADMAP Queue 1, samplers:"
-            " Halton tables and maxmin02)")
+    if kind in ("halton", "halton-global"):
+        # radical inverses in bases 2 and 3 of the pass index (one host
+        # value for the wave), each pixel rotated by its own hash
+        hx = float(lds.radical_inverse_np(2, pass_idx))
+        hy = float(lds.radical_inverse_np(3, pass_idx))
+        rot = lds.to_unit_float(lds.hash_u32(pixel_idx))
+        rot2 = lds.to_unit_float(lds.hash_u32(lds.u32(pixel_idx) ^ 0x9E3779B9))
+        return torch.stack([torch.remainder(hx + rot, 1.0),
+                            torch.remainder(hy + rot2, 1.0)], dim=-1)
+    if kind == "maxmindist":
+        sx = lds.hash_u32(pixel_idx)
+        sy = lds.hash_u32(lds.u32(pixel_idx) ^ 0x85EBCA77)
+        x, y = lds.maxmin02_shared(pass_idx, max(int(spp), 2), sx, sy)
+        return torch.stack([x, y], dim=-1)
     return uniform(key, (n, 2), dev)
 
 
@@ -93,15 +107,19 @@ class SampleCtx:
         return replace(self, pixel=pixel)
 
 
+class HaltonCtx(SampleCtx):
+    """``halton-global``: every dimension is one permuted radical inverse
+    of the pass index at the dimension 2 + (bounce, purpose, k), shared by
+    every pixel and rotated per pixel (the reference's HaltonCtx)."""
+
+
 def make_sample_ctx(key, pixel_idx, pass_idx: int,
                     kind: str = "sobol") -> SampleCtx:
-    if kind not in _SOBOL_KINDS:
-        raise NotImplementedError(
-            f"GlobalSampler context for {kind!r} is not ported yet")
     salt = int(threefry.randint(threefry.fold_in(key, 0x5D5), (), 0,
                                 2 ** 31 - 1)) & lds.M32
-    return SampleCtx(pixel=lds.u32(pixel_idx), index=int(pass_idx) & lds.M32,
-                     salt=salt)
+    cls = HaltonCtx if kind == "halton-global" else SampleCtx
+    return cls(pixel=lds.u32(pixel_idx), index=int(pass_idx) & lds.M32,
+               salt=salt)
 
 
 def _dim_seed(ctx: SampleCtx, bounce: int, purpose: int, k: int):
@@ -113,17 +131,25 @@ def ctx_uniform(ctx, key, bounce: int, purpose: int, shape, device=None):
     """Uniform samples for one integration decision.
 
     ctx None -> threefry stream ``wave_key(key, 0, bounce, purpose)``;
-    ctx set  -> padded Owen-scrambled Sobol02 pairs.  shape: (N,) or (N, k)
+    a HaltonCtx -> permuted radical inverses rotated per pixel;
+    another ctx -> padded Owen-scrambled Sobol02 pairs.  shape: (N,) or (N, k)
     with k <= 4."""
     if ctx is None:
         return uniform(wave_key(key, 0, bounce, purpose), shape, device)
     k = 1 if len(shape) == 1 else shape[1]
     cols = []
-    for pair in range((k + 1) // 2):
-        sx = _dim_seed(ctx, bounce, purpose, 2 * pair)
-        sy = _dim_seed(ctx, bounce, purpose, 2 * pair + 1)
-        x, y = lds.sobol02_owen_shared(ctx.index, sx, sy)
-        cols.extend([x, y])
+    if isinstance(ctx, HaltonCtx):
+        for kk in range(k):
+            code = (bounce * 64 + purpose * 4 + kk) & lds.M32
+            x1 = float(lds.scrambled_radical_inverse_dyn(2 + code, ctx.index))
+            rot = lds.to_unit_float(_dim_seed(ctx, bounce, purpose, kk))
+            cols.append(torch.remainder(x1 + rot, 1.0))
+    else:
+        for pair in range((k + 1) // 2):
+            sx = _dim_seed(ctx, bounce, purpose, 2 * pair)
+            sy = _dim_seed(ctx, bounce, purpose, 2 * pair + 1)
+            x, y = lds.sobol02_owen_shared(ctx.index, sx, sy)
+            cols.extend([x, y])
     if len(shape) == 1:
         return cols[0]
     return torch.stack(cols[:k], dim=-1)

@@ -6,12 +6,14 @@ reference's names; ``state.scene_from_numpy`` moves them to a device as
 a ``DeviceScene``.  The reference module imports jax at the top, so its
 numpy helpers are carried here as copies.
 
-Covered: triangles, spheres, the BVH (``nodes_packed``/``tris_packed``),
-materials, lights (point, spot, distant, infinite, triangle and sphere
-area lights, with the power and spatial selection tables), the constant
-and map environment, world bounds, and the cluster pack of the fused
-traversal kernel.  Scenes with motion blur, media, a kd-tree, Fourier,
-hair or subsurface materials, goniometric or projection lights raise.
+Covered: triangles (with their ptex face index), spheres, the BVH
+(``nodes_packed``/``tris_packed``), materials, lights (point, spot,
+distant, infinite, goniometric and projection lights with their stacked
+direction maps, triangle and sphere area lights, with the power and
+spatial selection tables), the constant and map environment, world
+bounds, and the cluster pack of the fused traversal kernel.  Scenes with
+motion blur, media, a kd-tree, Fourier, hair or subsurface materials
+raise.
 """
 
 from __future__ import annotations
@@ -32,8 +34,6 @@ __all__ = ["DeviceScene", "build_device_scene", "build_leaves",
 _UNPORTED_MATERIALS = {
     apilib.MAT_HAIR: "hair", apilib.MAT_FOURIER: "fourier",
     apilib.MAT_SUBSURFACE: "subsurface"}
-_UNPORTED_LIGHTS = {apilib.LIGHT_GONIO: "goniometric",
-                    apilib.LIGHT_PROJECTION: "projection"}
 
 
 def _check_supported(sd):
@@ -51,11 +51,6 @@ def _check_supported(sd):
             raise NotImplementedError(
                 f"{_UNPORTED_MATERIALS[m.kind]} material is not ported yet "
                 "(ROADMAP slice 3)")
-    for lrec in sd.lights:
-        if lrec.kind in _UNPORTED_LIGHTS:
-            raise NotImplementedError(
-                f"{_UNPORTED_LIGHTS[lrec.kind]} light is not ported yet "
-                "(ROADMAP Queue 1, lights)")
 
 
 def _smooth_from_geo(p):
@@ -91,16 +86,23 @@ def build_leaves(sd, with_clusters: bool = False) -> dict:
              for b in sd.tri_blocks], axis=0)
         mat = np.concatenate([b["mat"] for b in sd.tri_blocks])
         lig = np.concatenate([b["light"] for b in sd.tri_blocks])
+        face = np.concatenate(
+            [b.get("face", np.arange(b["p"].shape[0], dtype=np.int32))
+             for b in sd.tri_blocks])
     else:
         p = np.zeros((1, 3, 3), np.float32)
         ns = np.zeros((1, 3, 3), np.float32)
         uv = np.zeros((1, 3, 2), np.float32)
         mat = np.zeros(1, np.int32)
         lig = np.full(1, -1, np.int32)
+        face = np.zeros(1, np.int32)
 
     flat = bvhlib.build_bvh(p)
     order = flat.prim_order
+    # every per-triangle table in BVH order: the order of the prim ids
+    # that both traversal kernels return
     p, ns, uv, mat, lig = p[order], ns[order], uv[order], mat[order], lig[order]
+    face = face[order]
     e1 = p[:, 1] - p[:, 0]
     e2 = p[:, 2] - p[:, 0]
     ng = _geo_normal(p)
@@ -224,6 +226,7 @@ def build_leaves(sd, with_clusters: bool = False) -> dict:
         lcf[i] = lrec.cos_falloff
         l2s[i] = 1.0 if lrec.two_sided else 0.0
         lsph[i] = lrec.sphere_index
+    lmap = _build_light_maps(sd, L)
 
     env = _build_env_map(sd)
 
@@ -251,6 +254,15 @@ def build_leaves(sd, with_clusters: bool = False) -> dict:
         elif lrec.kind in (apilib.LIGHT_AREA_TRI, apilib.LIGHT_AREA_SPHERE):
             powers[i] = (np.pi * lum * max(l_area[i], 1e-12)
                          * (2.0 if lrec.two_sided else 1.0))
+        elif lrec.kind == apilib.LIGHT_GONIO:
+            # goniometric.h Power(): 4 pi I * mean(map)
+            powers[i] = 4.0 * np.pi * lum * lmap["mean_lum"][i]
+        elif lrec.kind == apilib.LIGHT_PROJECTION:
+            # projection.cpp Power(): the solid angle of the cone
+            tan2 = lmap["proj_ax"][i] * lmap["proj_ay"][i]
+            cos_w = 1.0 / np.sqrt(1.0 + tan2)
+            powers[i] = (2.0 * np.pi * (1.0 - cos_w) * lum
+                         * lmap["mean_lum"][i])
     if use_power and powers[:max(nl, 1)].sum() > 0 and nl > 0:
         lpdf = np.zeros(L, np.float32)
         lpdf[:nl] = (powers[:nl] / powers[:nl].sum()).astype(np.float32)
@@ -265,7 +277,8 @@ def build_leaves(sd, with_clusters: bool = False) -> dict:
         lref = np.zeros((L, 3), np.float64)
         has_pos = np.zeros(L, bool)
         for i, lrec in enumerate(sd.lights):
-            if lrec.kind in (apilib.LIGHT_POINT, apilib.LIGHT_SPOT):
+            if lrec.kind in (apilib.LIGHT_POINT, apilib.LIGHT_SPOT,
+                             apilib.LIGHT_GONIO, apilib.LIGHT_PROJECTION):
                 lref[i] = lpos[i]
                 has_pos[i] = True
             elif lrec.kind == apilib.LIGHT_AREA_SPHERE:
@@ -337,7 +350,7 @@ def build_leaves(sd, with_clusters: bool = False) -> dict:
 
     leaves = dict(
         tri_p0=p[:, 0], tri_e1=e1, tri_e2=e2, tri_ng=ng, tri_ns=ns,
-        tri_uv=uv, tri_mat=mat, tri_light=lig,
+        tri_uv=uv, tri_mat=mat, tri_light=lig, tri_face=face,
         node_min=flat.node_min, node_max=flat.node_max,
         node_right=flat.node_right, node_count=flat.node_count,
         node_axis=flat.node_axis, nodes_packed=nodes_packed,
@@ -353,7 +366,9 @@ def build_leaves(sd, with_clusters: bool = False) -> dict:
         light_cos_total=lct, light_cos_falloff=lcf, light_two_sided=l2s,
         light_sphere=lsph, light_tri_off=l_off, light_tri_cnt=l_cnt,
         light_area=l_area, light_pdf=lpdf, light_cdf=lcdf,
-        n_lights=np.int32(nl),
+        n_lights=np.int32(nl), light_w2l=lmap["w2l"], light_img=lmap["img"],
+        light_img_id=lmap["img_id"], light_proj_ax=lmap["proj_ax"],
+        light_proj_ay=lmap["proj_ay"],
         ltri_p0=ltri_p0, ltri_e1=ltri_e1, ltri_e2=ltri_e2, ltri_ng=ltri_ng,
         ltri_area=ltri_area, ltri_cdf=ltri_cdf, ltri_light=ltri_light,
         env_img=env["img"], env_marg_cdf=env["marg"],
@@ -386,6 +401,74 @@ def build_device_scene(sd, device, with_clusters: bool = None) -> DeviceScene:
         with_clusters = device.type == "cuda"
     leaves = build_leaves(sd, with_clusters=with_clusters)
     return scene_from_numpy(leaves, device)
+
+
+def _resample_bilinear(img, h, w):
+    """Bilinear resample to a fixed (h, w, 3) raster, so that every light
+    map stacks into one device array."""
+    img = np.asarray(img, np.float32)
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, axis=-1)
+    ih, iw = img.shape[:2]
+    fy = (np.arange(h) + 0.5) / h * ih - 0.5
+    fx = (np.arange(w) + 0.5) / w * iw - 0.5
+    y0 = np.clip(np.floor(fy).astype(np.int64), 0, ih - 1)
+    x0 = np.clip(np.floor(fx).astype(np.int64), 0, iw - 1)
+    y1 = np.clip(y0 + 1, 0, ih - 1)
+    x1 = np.clip(x0 + 1, 0, iw - 1)
+    ay = np.clip(fy - y0, 0.0, 1.0)[:, None, None]
+    ax = np.clip(fx - x0, 0.0, 1.0)[None, :, None]
+    out = ((1 - ay) * (1 - ax) * img[y0][:, x0]
+           + (1 - ay) * ax * img[y0][:, x1]
+           + ay * (1 - ax) * img[y1][:, x0]
+           + ay * ax * img[y1][:, x1])
+    return out.astype(np.float32)
+
+
+def _build_light_maps(sd, L, MH=64, MW=128):
+    """Goniometric and projection lights: world-to-light rotations, their
+    direction maps resampled to one (G, MH, MW, 3) stack, the projection
+    window's half extents, and each map's mean luminance (its factor in
+    the light's power), as the reference builds them.  A light whose map
+    is missing or unreadable keeps no map (a bare point light or cone)."""
+    w2l = np.tile(np.eye(3, dtype=np.float32)[None], (L, 1, 1))
+    img_id = np.full(L, -1, np.int32)
+    proj_ax = np.ones(L, np.float32)
+    proj_ay = np.ones(L, np.float32)
+    maps = []
+    mean_lum = np.ones(L, np.float32)
+    for i, lrec in enumerate(sd.lights):
+        if lrec.kind not in (apilib.LIGHT_GONIO, apilib.LIGHT_PROJECTION):
+            continue
+        if lrec.w2l is not None:
+            w2l[i] = lrec.w2l
+        img = None
+        if lrec.map_name and not os.path.exists(lrec.map_name):
+            log.warning(f"light map {lrec.map_name} not found; "
+                        f"treating as unfiltered")
+        elif lrec.map_name:
+            try:
+                img = texlib._load_image_any(lrec.map_name)
+            except (OSError, ValueError) as e:
+                log.warning(f"light map load failed: {e}")
+        if lrec.kind == apilib.LIGHT_PROJECTION:
+            # projection.cpp's screen window: the fov spans the shorter
+            # axis, the longer one extends by the aspect ratio
+            tan_half = float(np.tan(0.5 * np.deg2rad(lrec.fov)))
+            aspect = img.shape[1] / img.shape[0] if img is not None else 1.0
+            if aspect > 1.0:
+                proj_ax[i], proj_ay[i] = tan_half * aspect, tan_half
+            else:
+                proj_ax[i], proj_ay[i] = tan_half, tan_half / aspect
+        if img is not None:
+            img_id[i] = len(maps)
+            maps.append(_resample_bilinear(img, MH, MW))
+            lum = maps[-1] @ np.array([0.212671, 0.715160, 0.072169])
+            mean_lum[i] = float(lum.mean())
+    return dict(w2l=w2l, img_id=img_id, proj_ax=proj_ax, proj_ay=proj_ay,
+                mean_lum=mean_lum,
+                img=(np.stack(maps) if maps
+                     else np.ones((1, MH, MW, 3), np.float32)))
 
 
 def _build_env_map(sd):

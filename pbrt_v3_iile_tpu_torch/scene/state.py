@@ -16,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .api import LIGHT_GONIO, LIGHT_PROJECTION
 from .textures import TextureTable, table_from_numpy
 
 # scalar leaves kept as python numbers (read by the host, never synced)
@@ -45,6 +46,7 @@ class DeviceScene:
     tri_uv: torch.Tensor
     tri_mat: torch.Tensor
     tri_light: torch.Tensor
+    tri_face: torch.Tensor       # (T,) i32 ptex face index
     # BVH (LinearBVHNode layout) and the packed traversal rows
     node_min: torch.Tensor
     node_max: torch.Tensor
@@ -98,6 +100,12 @@ class DeviceScene:
     light_pdf: torch.Tensor
     light_cdf: torch.Tensor
     n_lights: int
+    # goniometric / projection lights: rotations and stacked direction maps
+    light_w2l: torch.Tensor      # (L,3,3) world-to-light rotation
+    light_img: torch.Tensor      # (G,MH,MW,3)
+    light_img_id: torch.Tensor   # (L,) i32 map index or -1
+    light_proj_ax: torch.Tensor  # (L,) projection window half extents
+    light_proj_ay: torch.Tensor
     ltri_p0: torch.Tensor
     ltri_e1: torch.Tensor
     ltri_e2: torch.Tensor
@@ -125,6 +133,12 @@ class DeviceScene:
     tex_theta: float
     tex_cone_o: torch.Tensor
     clusters: Optional[ClusterPack] = None
+
+    def __post_init__(self):
+        # read once: whether a light carries a goniometric or projection
+        # map, so that light sampling skips the map lookups otherwise
+        kinds = set(self.light_kind[:self.n_lights].cpu().tolist())
+        self.has_map_lights = bool(kinds & {LIGHT_GONIO, LIGHT_PROJECTION})
 
     def leaves(self) -> dict:
         """Every leaf as numpy, under the reference's names."""

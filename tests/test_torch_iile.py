@@ -1,11 +1,12 @@
 """IILE parity, port vs JAX, on atrium at 16^2 with 8^2 hemispheres,
 seed 0, the BVH walker on both sides and the pretrained IISPTNet.
 
-The JAX side runs the stages of its first task with the package's own
+The JAX side ran the stages of its first task with the package's own
 cached programs (``iispt._anchor_fns``, ``_ff_fn``, ``_probes_fn``,
-``_mis_stage``), which its ``render_iile`` then reuses; each port stage
-gets the JAX stage's inputs, so every comparison starts from identical
-data.  The RNG streams are bit-exact; f32 rounding differs between the
+``_mis_stage``) and its ``render_iile``; their inputs and outputs are
+tests/golden/parity_iile_task16.npz (tools/make_parity_golden.py), so
+no JAX program compiles here.  Each port stage gets the JAX stage's
+inputs, so every comparison starts from identical data.  The RNG streams are bit-exact; f32 rounding differs between the
 libraries in the last ulp, and can flip a rare discrete decision (a
 lobe pick, a grazing hit).  Tolerances:
   - probe G-buffer: distance and normal within 1e-5 on >= 99.9% of the
@@ -17,18 +18,11 @@ lobe pick, a grazing hit).  Tolerances:
     0.5%, and >= 99% of the pixels within 1e-3 of the image's maximum.
 """
 
-import jax
-import jax.numpy as jnp
+import os
+
 import numpy as np
 import pytest
 
-from pbrt_v3_iile_tpu.integrators import iispt as jiispt
-from pbrt_v3_iile_tpu.integrators import render as jrender
-from pbrt_v3_iile_tpu.integrators import schedule as jsched
-from pbrt_v3_iile_tpu.ml import train as jtrain
-from pbrt_v3_iile_tpu.models import iisptnet as jnet
-from pbrt_v3_iile_tpu.scene import api as japi
-from pbrt_v3_iile_tpu.utils import vecmath as jvm
 from pbrt_v3_iile_tpu_torch.integrators import iispt as tiispt
 from pbrt_v3_iile_tpu_torch.integrators import probes as tprobes
 from pbrt_v3_iile_tpu_torch.integrators import render as trender
@@ -36,20 +30,16 @@ from pbrt_v3_iile_tpu_torch.models import weights as tweights
 from pbrt_v3_iile_tpu_torch.ops import threefry
 from pbrt_v3_iile_tpu_torch.scene import api as tapi
 
-from torch_parity import ATRIUM, to_np, tt
+from torch_parity import ATRIUM, REPO, tt
 
 RES, HEMI, SEED = 16, 8, 0
+GOLDEN = os.path.join(REPO, "tests", "golden", "parity_iile_task16.npz")
 
 
 def _sd(api):
     sd = api.load_scene(ATRIUM)
     sd.film.x_resolution = sd.film.y_resolution = RES
     return sd
-
-
-@pytest.fixture(scope="module")
-def flax_vars():
-    return jtrain.load_pretrained(jtrain.default_pretrained_path())
 
 
 @pytest.fixture(scope="module")
@@ -62,40 +52,22 @@ def port():
 
 
 @pytest.fixture(scope="module")
-def jax_task(flax_vars):
-    """The JAX package's first task at 16^2, stage by stage (numpy)."""
-    sd = _sd(japi)
-    scene, cam = jrender.build(sd)
-    task = jsched.compute_schedule(RES, RES, 1)[0]
-    ts = task.tilesize
-    fns = jiispt._anchor_fns(sd, HEMI, jnet.IISPTNet())
-    ff_fn = jiispt._ff_fn(False, "bvh")
-    key = jax.random.fold_in(jax.random.PRNGKey(SEED), 1000)
-    coords = jiispt.task_probe_coords(jnp.int32(0), jnp.int32(0), ts, RES, RES)
-    o, d = fns["probe_rays"](cam, key, coords)
-    fi = ff_fn(scene, o, d, key)
-    pv = fi["found"] & (jvm.luminance(fi["beta"]) > 0.0)
-    gb = jiispt._probes_fn(HEMI, False, "bvh")(scene, fi["p"], fi["n"], key)
-    R = fns["cnn"](flax_vars, gb.intensity, gb.normals, gb.distance, pv)
-    # the task's one chunk, as run_task makes it
-    G = jsched.NUMBER_TILES + 1
-    li = jnp.arange(8192)
-    lx, ly = li % RES, jnp.minimum(li // RES, RES - 1)
-    in_img = li < RES * RES
-    fo, fd = fns["pixel_rays"](cam, jax.random.fold_in(key, 7), lx, ly)
-    ff = ff_fn(scene, fo, fd, jax.random.fold_in(key, 8))
-    gi, gj = jnp.clip(lx // ts, 0, G - 2), jnp.clip(ly // ts, 0, G - 2)
-    n_ids = jnp.stack([gj * G + gi, (gj + 1) * G + gi + 1, gj * G + gi + 1,
-                       (gj + 1) * G + gi], axis=-1)
-    mis_in = (R, pv, gb.look, gb.origin, gb.right, gb.up, gb.look,
-              coords.astype(jnp.float32), n_ids, lx, ly, in_img, ff["found"],
-              ff["beta"], ff["p"], ff["n"], ff["wo"], ff["mat"], ff["uv"])
-    rgb, valid = jiispt._mis_stage(scene, cam, *mis_in,
-                                   jax.random.fold_in(key, 9), jnp.int32(ts),
-                                   HEMI)
-    return to_np(dict(coords=coords, o=o, d=d, fi=fi, gb=gb, R=R, fo=fo,
-                      fd=fd, ff=ff, mis_in=mis_in, rgb=rgb, valid=valid,
-                      ts=ts))
+def jax_task():
+    """The JAX package's first task at 16^2, stage by stage (numpy), and
+    its render_iile images, from the golden: arrays "a/b" as j["a"]["b"],
+    "mis_in/<i>" as the tuple j["mis_in"]."""
+    out = {}
+    with np.load(GOLDEN) as z:
+        for key in z.files:
+            *head, last = key.split("/")
+            d = out
+            for h in head:
+                d = d.setdefault(h, {})
+            d[last] = z[key]
+    out["mis_in"] = tuple(out["mis_in"][str(i)]
+                          for i in range(len(out["mis_in"])))
+    out["ts"] = int(out["ts"])
+    return out
 
 
 def _frac_close(a, b, tol, axis=-1):
@@ -170,14 +142,13 @@ def test_mis_stage(port, jax_task):
     assert j["valid"][:RES * RES].mean() > 0.8 and j["rgb"].mean() > 0.0
 
 
-def test_render_iile_matches_jax(flax_vars, jax_task):
-    ref = jiispt.render_iile(_sd(japi), net_vars=flax_vars, seed=SEED,
-                             indirect_tasks=1, direct_samples=1,
-                             hemi_size=HEMI, use_pallas=False)
+def test_render_iile_matches_jax(jax_task):
+    ref = jax_task["render"]
     got = tiispt.render_iile(_sd(tapi), seed=SEED, indirect_tasks=1,
                              direct_samples=1, hemi_size=HEMI, device="cpu")
     assert got[3]["accel"] == "bvh" and got[3]["tasks"] == 1
-    for name, a, b in zip(("combined", "direct", "indirect"), got[:3], ref[:3]):
+    for name, a in zip(("combined", "direct", "indirect"), got[:3]):
+        b = ref[name]
         assert a.shape == b.shape == (RES, RES, 3), name
         assert abs(a.mean() - b.mean()) <= 0.005 * b.mean(), (name, a.mean(),
                                                               b.mean())

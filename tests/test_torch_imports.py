@@ -2,8 +2,12 @@
 ``sys.modules["jax"]`` and ``sys.modules["pbrt_v3_iile_tpu"]`` set to None
 every module of pbrt_v3_iile_tpu_torch imports (the training modules
 ``ml/{losses,dataset,train,evalstats}``, ``utils/metrics`` and
-``cli/train`` among them), a 4x4 scene parsed by the port's own
-``scene/api.py`` renders, the same scene at 8x8 renders with IILE (1
+``cli/train``, and ``integrators/ao``, ``scene/ptex``,
+``utils/{stats,config}`` among them), a 4x4 scene parsed by the port's
+own ``scene/api.py`` renders, a scene without a Sampler line (pbrt's
+default, halton), with a procedural texture and a goniometric light,
+renders with ``path``, ``whitted`` and ``ambientocclusion``, the first
+scene at 8x8 renders with IILE (1
 task, 1 direct pass, 8x8 hemispheres, the pretrained IISPTNet read from
 its npz), and a narrow net takes a train step on batches made by the
 port's dataset module.
@@ -20,6 +24,8 @@ from torch_parity import REPO
 
 SCRIPT = r"""
 import importlib, pkgutil, sys
+import torch
+torch.set_num_threads(2)
 sys.modules["jax"] = None          # any import of jax now raises
 sys.modules["pbrt_v3_iile_tpu"] = None   # ... and of the JAX package
 import pbrt_v3_iile_tpu_torch as pkg
@@ -28,7 +34,8 @@ for name in names:
     importlib.import_module(name)
 assert {"pbrt_v3_iile_tpu_torch." + m for m in (
     "ml.losses", "ml.dataset", "ml.train", "ml.evalstats", "utils.metrics",
-    "cli.train")} <= set(names)
+    "cli.train", "integrators.ao", "scene.ptex", "utils.stats",
+    "utils.config")} <= set(names)
 from pbrt_v3_iile_tpu_torch.scene import api as apilib
 from pbrt_v3_iile_tpu_torch.integrators import render
 sd = apilib.load_scene_string('''
@@ -47,6 +54,25 @@ sd = apilib.load_scene_string('''
 img, stats = render.render(sd, spp=1, device="cpu")
 assert img.shape == (4, 4, 3) and (img >= 0).all() and img.mean() > 0
 import numpy as np
+text = '''
+    LookAt 0 1 -4  0 0.5 0  0 1 0
+    Camera "perspective" "float fov" [55]
+    Film "image" "integer xresolution" [4] "integer yresolution" [4]
+    WorldBegin
+    LightSource "goniometric" "rgb I" [30 30 30] "point from" [0 3 0]
+    Texture "n" "float" "wrinkled"
+    Texture "kd" "color" "scale" "texture tex1" "n" "rgb tex2" [0.7 0.7 0.7]
+    Material "matte" "texture Kd" "kd"
+    Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+        "point P" [-6 -0.5 4  6 -0.5 4  6 6 4  -6 6 4]
+    WorldEnd'''
+for kind in ("path", "whitted", "ambientocclusion"):
+    sd2 = apilib.load_scene_string(text)
+    assert sd2.sampler.kind == "halton"
+    sd2.integrator.kind = kind
+    img2, _ = render.render(sd2, spp=2, device="cpu")
+    assert img2.shape == (4, 4, 3) and np.isfinite(img2).all(), kind
+    assert img2.mean() > 0, kind
 from pbrt_v3_iile_tpu_torch.integrators import iispt
 sd.film.x_resolution = sd.film.y_resolution = 8
 imgs = iispt.render_iile(sd, indirect_tasks=1, direct_samples=1, hemi_size=8,

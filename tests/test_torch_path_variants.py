@@ -4,20 +4,22 @@ atrium with the BVH walker: the ``directlighting`` integrator
 IILE's compacted direct pass, and the probe G-buffer (``collect_aux``) of
 the compacted loop against the plain loop's.
 
+The JAX side's images are tests/golden/parity_*.npz and
+tests/golden/direct_atrium48x32_d6_compact_p4.npz, made on the same
+settings by tools/make_parity_golden.py and tools/make_direct_golden.py
+(so no JAX program compiles here).
+
 Criterion for images: tests/test_golden.py's, mean within 2% and >= 99%
 of the pixels within 5% relative (+1e-2), as tests/test_torch_slice.py
 uses.  The G-buffer of the two loops is the same primary segment, so it
 must agree exactly.
 """
 
-import jax
+import os
+
 import numpy as np
 import torch
 
-from pbrt_v3_iile_tpu.integrators import path as jpath
-from pbrt_v3_iile_tpu.integrators import render as jrender
-from pbrt_v3_iile_tpu.ops import film as jfilm
-from pbrt_v3_iile_tpu.scene import api as japi
 from pbrt_v3_iile_tpu_torch.integrators import iispt as tiispt
 from pbrt_v3_iile_tpu_torch.integrators import path as tpath
 from pbrt_v3_iile_tpu_torch.integrators import render as trender
@@ -25,7 +27,9 @@ from pbrt_v3_iile_tpu_torch.ops import film as tfilm
 from pbrt_v3_iile_tpu_torch.ops import threefry
 from pbrt_v3_iile_tpu_torch.scene import api as tapi
 
-from torch_parity import ATRIUM, golden_criterion
+from torch_parity import ATRIUM, REPO, golden_criterion
+
+GOLDEN = os.path.join(REPO, "tests", "golden")
 
 
 def _atrium(api, w, h, kind="path"):
@@ -36,38 +40,23 @@ def _atrium(api, w, h, kind="path"):
 
 
 def test_directlighting_render_matches_jax():
-    ref, _ = jrender.render(_atrium(japi, 16, 16, "directlighting"), spp=2,
-                            seed=7)
+    ref = np.load(os.path.join(GOLDEN, "parity_directlighting16.npz"))["img"]
     sd = _atrium(tapi, 16, 16, "directlighting")
     cfg = trender.make_integrator_config(sd, device="cpu")
     assert cfg.nee_all and cfg.direct_only and cfg.accel == "bvh"
     img, _ = trender.render(sd, spp=2, seed=7, device="cpu")
-    ok, info = golden_criterion(img, np.asarray(ref))
+    ok, info = golden_criterion(img, ref)
     assert ok, info
 
 
 def test_compacted_direct_pass_matches_jax():
     """IILE's direct pass on the clusters accel: nee_all, direct_only and
     the compact schedule (1, .5, .25, .25), here on the BVH walker at
-    depth 1 (the file's 6 unrolls into a JAX program that takes minutes to
-    compile on a CPU; direct-only paths past one non-specular bounce are
-    ghosts).  48x32 = 1536 lanes: above the 1024-lane floor of the
-    budget, so the budget roulette runs from bounce 1."""
+    depth 1 (direct-only paths past one non-specular bounce are ghosts).
+    48x32 = 1536 lanes: above the 1024-lane floor of the budget, so the
+    budget roulette runs from bounce 1."""
+    ref = np.load(os.path.join(GOLDEN, "parity_direct_compact_d1.npz"))["img"]
     sched = tiispt.DIRECT_COMPACT_SCHEDULE
-    jsd = _atrium(japi, 48, 32)
-    jsd.integrator.max_depth = 1
-    jcfg = jpath.PathConfig(max_depth=jsd.integrator.max_depth, nee=True,
-                            nee_all=True, direct_only=True, accel="bvh",
-                            compact_schedule=sched)
-    scene, cam = jrender.build(jsd)
-    run = jax.jit(jrender.render_pass_fn(jsd, jcfg), static_argnums=(4,))
-    key = jax.random.fold_in(jax.random.PRNGKey(0), 5000)
-    film = jfilm.new_film(32, 48)
-    for p in range(2):
-        L, jit_, _ = run(scene, cam, key, p, 0)
-        film = jfilm.add_sample_image(film, L, jit_)
-    ref = np.asarray(jfilm.resolve(film))
-
     sd = _atrium(tapi, 48, 32)
     sd.integrator.max_depth = 1
     cfg = tpath.PathConfig(max_depth=sd.integrator.max_depth, nee_all=True,
@@ -82,6 +71,24 @@ def test_compacted_direct_pass_matches_jax():
         tf = tfilm.add_sample_image(tf, L, jit_)
         assert int(aux["compact_overflow"]) == 0
     ok, info = golden_criterion(tfilm.resolve(tf).numpy(), ref)
+    assert ok, info
+
+
+def test_compacted_direct_pass_depth6_matches_jax():
+    """iispt.direct_passes at the file's depth 6, compacted (its clusters
+    configuration; the scene is built without the cluster pack, so the
+    traversals take the BVH walker the golden took), against the JAX
+    package's direct pass of the same settings and key
+    (tools/make_direct_golden.py)."""
+    z = np.load(os.path.join(GOLDEN, "direct_atrium48x32_d6_compact_p4.npz"))
+    w, h, passes = int(z["width"]), int(z["height"]), int(z["passes"])
+    sd = _atrium(tapi, w, h)
+    assert sd.integrator.max_depth == int(z["max_depth"]) == 6
+    assert tiispt.DIRECT_COMPACT_SCHEDULE == tuple(z["schedule"])
+    scene, cam = trender.build(sd, "cpu", with_clusters=False)
+    key = threefry.fold_in(threefry.prng_key(int(z["seed"])), int(z["key_fold"]))
+    img = tiispt.direct_passes(sd, scene, cam, key, passes, "clusters", "cpu")
+    ok, info = golden_criterion(img, z["img"])
     assert ok, info
 
 

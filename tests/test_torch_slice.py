@@ -2,69 +2,56 @@
 
 Same scene, seed and sampler streams on both sides (the port reproduces
 the threefry and Owen-sobol bits), accel "bvh" on both sides (the BVH
-walker on the CPU).  Criterion: tests/test_golden.py's, mean within 2%
-and >= 99% of pixels within 5% relative (+1e-2); f32 rounding can flip
-a rare discrete decision (a Russian-roulette or lobe draw at its
-threshold), which moves one path.
+walker on the CPU).  The JAX side's images are
+tests/golden/parity_slice_*.npz, made on the same settings by
+tools/make_parity_golden.py (so no JAX program compiles here).
+Criterion: tests/test_golden.py's, mean within 2% and >= 99% of pixels
+within 5% relative (+1e-2); f32 rounding can flip a rare discrete
+decision (a Russian-roulette or lobe draw at its threshold), which moves
+one path.
 """
 
 import os
 
-import jax
 import numpy as np
 import pytest
 
-from pbrt_v3_iile_tpu.integrators import render as jrender
-from pbrt_v3_iile_tpu.ops import film as jfilm
-from pbrt_v3_iile_tpu.scene import api as apilib
-from pbrt_v3_iile_tpu.utils import image as imglib
 from pbrt_v3_iile_tpu_torch.cli import main as tcli
 from pbrt_v3_iile_tpu_torch.integrators import render as trender
+from pbrt_v3_iile_tpu_torch.scene import api as tapi
+from pbrt_v3_iile_tpu_torch.utils import image as imglib
 
 from torch_parity import ATRIUM, REPO, golden_criterion
 
-COMPACT = (1.0, 1.0, 0.5, 0.25, 0.25, 0.125)
-
 
 def _atrium(w, h, depth=3):
-    sd = apilib.load_scene(ATRIUM)
+    sd = tapi.load_scene(ATRIUM)
     sd.film.x_resolution, sd.film.y_resolution = w, h
     sd.integrator.max_depth = depth
     return sd
 
 
-def _jax_render_compact(sd, spp, seed):
-    """The JAX package's render loop with the compacted wavefront on the
-    bvh accel (its render() compacts only the cluster accel)."""
-    cfg = jrender.make_integrator_config(sd, accel="bvh")._replace(
-        compact_schedule=COMPACT)
-    scene, cam = jrender.build(sd)
-    run = jax.jit(jrender.render_pass_fn(sd, cfg), static_argnums=(4,))
-    key = jax.random.PRNGKey(seed)
-    film = jfilm.new_film(sd.film.y_resolution, sd.film.x_resolution)
-    for p in range(spp):
-        L, jit_, _ = run(scene, cam, key, p, 0)
-        film = jfilm.add_sample_image(film, L, jit_)
-    return np.asarray(jfilm.resolve(film))
+def _golden(name):
+    return np.load(os.path.join(REPO, "tests", "golden", f"parity_{name}.npz"))
 
 
 def test_scan_render_matches_jax():
-    sd = _atrium(16, 16)
-    ref, jst = jrender.render(sd, spp=2, seed=7)
-    img, tst = trender.render(sd, spp=2, seed=7, accel="bvh", device="cpu")
-    ok, info = golden_criterion(img, ref)
+    ref = _golden("slice_scan16")
+    img, tst = trender.render(_atrium(16, 16), spp=2, seed=7, accel="bvh",
+                              device="cpu")
+    ok, info = golden_criterion(img, ref["img"])
     assert ok, info
     # same paths: the traced ray count agrees to a few rays
-    assert abs(tst["rays"] - jst["rays"]) <= max(4, jst["rays"] // 500)
+    jrays = int(ref["rays"])
+    assert abs(tst["rays"] - jrays) <= max(4, jrays // 500)
 
 
 def test_compacted_render_matches_jax():
     # 48x32 = 1536 lanes: above the 1024-lane floor of the per-bounce
     # budget, so the budget roulette and the slice run from bounce 2
-    sd = _atrium(48, 32)
-    ref = _jax_render_compact(sd, 2, 7)
-    img, _ = trender.render(sd, spp=2, seed=7, accel="bvh", compact=True,
-                            device="cpu")
+    ref = _golden("slice_compact48x32")["img"]
+    img, _ = trender.render(_atrium(48, 32), spp=2, seed=7, accel="bvh",
+                            compact=True, device="cpu")
     ok, info = golden_criterion(img, ref)
     assert ok, info
 

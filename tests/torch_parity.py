@@ -17,6 +17,10 @@ import torch
 from pbrt_v3_iile_tpu_torch.scene.state import ClusterPack, DeviceScene
 from pbrt_v3_iile_tpu_torch.scene.textures import TextureTable
 
+# the tests run in several worker processes at once: two threads each
+# keep torch's CPU kernels from oversubscribing the cores
+torch.set_num_threads(2)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATRIUM = os.path.join(REPO, "scenes", "atrium.pbrt")
 
