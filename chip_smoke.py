@@ -102,6 +102,29 @@ Phases (one line each):
      512^2, three passes each of halton, ambientocclusion and whitted
      on clusters (ms a pass, Mrays/s as path.py counts rays, launches a
      pass) and the host seconds of the MaxMinDist search at 16 spp;
+  11. materials and transport (run after phase 10 and before phase 8's
+     profiler sessions; its own profiled passes run after phase 8's
+     timed passes): (a) on the card, at the JAX tests' own tolerances:
+     Beer-Lambert through homogeneous fog (tests/test_media.py's
+     ABSORB_SCENE, rtol 0.06) and through a grid medium
+     (GRID_ABSORB_SCENE, 5 exp(-1.75), rtol 0.08), the hair white furnace
+     unsampled (atol 0.06) and sampled (0.08), a Lambertian Fourier table
+     against the same-albedo matte (3% of the mean); (b)
+     scenes/atrium_transport.pbrt with only its fog, smoke, kdsubsurface
+     vase, hair or Fourier bowl, and with all of them, at 128^2, 16 spp,
+     seed 0, on each accel, against the JAX package's renders
+     (tests/golden/transport128_*.npz, made by
+     tools/make_transport_golden.py) at phase 7's tolerances, the bowl a
+     Fourier material, K1 launched on clusters (K2 there only as its
+     overflow, at most once a K1 call) and K2 and not K1 on bvh; the
+     CLI's --quick volpath render; (c) measured, no
+     threshold: atrium_transport at 512^2, the file's depth 6, on
+     clusters, with and without its smoke: three passes each (ms,
+     Mrays/s as path.py counts rays, the probe rays among them, launches
+     a pass, and the traversal calls and launches of the last pass by
+     site: closest-hit, shadow, BSSRDF probe, BSSRDF exit shadow), then
+     one profiled pass each with the delta- and ratio-tracking loops'
+     calls, launches, device and host ms;
   8. timing (printed, no threshold): each kernel, its plain versions and
      the torch candidate tables K1 no longer needs, at the main-path
      shapes, by CUDA events, with each kernel's bound computed from this
@@ -865,6 +888,335 @@ def scenes_phase(dev, smi, K1, K2):
     return per_pass
 
 
+# phase 11: tests/test_media.py's analytic scenes (their tolerances), and
+# the JAX goldens of tools/make_transport_golden.py at the IILE tolerances
+ABSORB_SCENE = """
+LookAt 0 0 0  0 0 1  0 1 0
+Camera "perspective" "float fov" [30]
+Film "image" "integer xresolution" [16] "integer yresolution" [16]
+Integrator "volpath" "integer maxdepth" [4]
+MakeNamedMedium "fog" "string type" "homogeneous"
+  "color sigma_a" [0.2 0.4 0.6] "color sigma_s" [0 0 0]
+MediumInterface "" "fog"
+WorldBegin
+AttributeBegin
+  Material "matte" "color Kd" [0 0 0]
+  AreaLightSource "area" "color L" [5 5 5] "bool twosided" "true"
+  Shape "trianglemesh" "point P" [-9 -9 4 9 -9 4 9 9 4 -9 9 4]
+    "integer indices" [0 1 2 2 3 0]
+AttributeEnd
+WorldEnd
+"""
+GRID_ABSORB_SCENE = """
+LookAt 0 0 0  0 0 1  0 1 0
+Camera "perspective" "float fov" [20]
+Film "image" "integer xresolution" [16] "integer yresolution" [16]
+Integrator "volpath" "integer maxdepth" [4]
+MakeNamedMedium "smoke" "string type" "heterogeneous"
+  "color sigma_a" [0.5 0.5 0.5] "color sigma_s" [0 0 0]
+  "integer nx" [2] "integer ny" [2] "integer nz" [2]
+  "float density" [1 1 1 1 1 1 1 1]
+  "point p0" [-10 -10 0] "point p1" [10 10 4]
+MediumInterface "" "smoke"
+WorldBegin
+AttributeBegin
+  Material "matte" "color Kd" [0 0 0]
+  AreaLightSource "area" "color L" [5 5 5] "bool twosided" "true"
+  Shape "trianglemesh" "point P" [-9 -9 4 9 -9 4 9 9 4 -9 9 4]
+    "integer indices" [0 1 2 2 3 0]
+AttributeEnd
+WorldEnd
+"""
+FOURIER_SCENE = """
+LookAt 0 1.5 -3  0 0 0  0 1 0
+Camera "perspective" "float fov" [50]
+Film "image" "integer xresolution" [32] "integer yresolution" [32]
+Integrator "path" "integer maxdepth" [2]
+WorldBegin
+LightSource "point" "rgb I" [10 10 10] "point from" [0 3 -1]
+{mat}
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point P" [-2 0 -2  2 0 -2  2 0 2  -2 0 2]
+WorldEnd
+"""
+TRANSPORT_GOLDEN = ("fog", "smoke", "sss", "hair", "fourier", "all")
+
+
+def transport_tool():
+    """tools/make_transport_golden.py (its top level imports no jax): the
+    scene's variant() and load_case()."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_transport_golden",
+        os.path.join(REPO, "tools", "make_transport_golden.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def traversal_sites(K1, K2):
+    """Counts each traversal call of the path integrator by its site
+    (closest-hit waves, shadow waves of surface and medium vertices,
+    BSSRDF probe waves, BSSRDF exit-shadow waves) with the kernel
+    launches it made; yields the dict of counts."""
+    import sys
+
+    from pbrt_v3_iile_tpu_torch.ops import intersect as isect
+
+    counts = {}
+    inner, inner_occ = isect.intersect, isect.occluded
+    site = {("_bounce", False): "closest_hit", ("_bssrdf", False): "bssrdf_probe",
+            ("nee_once", True): "shadow", ("_bssrdf", True): "bssrdf_exit_shadow"}
+
+    def tally(name, fn):
+        a1, a2 = K1.LAUNCHES, K2.LAUNCHES
+        res = fn()
+        c = counts.setdefault(name, dict(calls=0, cluster_traverse=0,
+                                         bvh_traverse=0))
+        c["calls"] += 1
+        c["cluster_traverse"] += K1.LAUNCHES - a1
+        c["bvh_traverse"] += K2.LAUNCHES - a2
+        return res
+
+    def intersect(*a, **kw):
+        caller = sys._getframe(1).f_code.co_name
+        if caller == "occluded":
+            return inner(*a, **kw)
+        return tally(site.get((caller, False), caller), lambda: inner(*a, **kw))
+
+    def occluded(*a, **kw):
+        caller = sys._getframe(1).f_code.co_name
+        return tally(site.get((caller, True), caller), lambda: inner_occ(*a, **kw))
+
+    isect.intersect, isect.occluded = intersect, occluded
+    try:
+        yield counts
+    finally:
+        isect.intersect, isect.occluded = inner, inner_occ
+
+
+def transport_phase(dev, smi, K1, K2):
+    """Phase 11: materials and transport.  (a) the analytic gates, (b) the
+    JAX goldens on both accels and the CLI, (c) the 512^2 passes of
+    atrium_transport with and without its smoke, measured.  Returns the
+    launches a pass of (c), those of (b), and the profile step of (c),
+    which runs after phase 8's timed passes."""
+    from pbrt_v3_iile_tpu_torch.cli import main as climain
+    from pbrt_v3_iile_tpu_torch.integrators import path as pathlib_
+    from pbrt_v3_iile_tpu_torch.integrators import render as renderlib
+    from pbrt_v3_iile_tpu_torch.ops import fourierbsdf as fblib
+    from pbrt_v3_iile_tpu_torch.ops import hair as hairlib
+    from pbrt_v3_iile_tpu_torch.ops import threefry
+    from pbrt_v3_iile_tpu_torch.scene import api as apilib
+    from pbrt_v3_iile_tpu_torch.utils import image as imglib
+
+    t_phase = time.time()
+    tool = transport_tool()
+
+    # (a) the analytic gates on the card, at the JAX tests' tolerances
+    for name, text, spp, want, rtol in (
+            ("beer_lambert_fog", ABSORB_SCENE, 32,
+             5.0 * np.exp(-np.array([0.2, 0.4, 0.6]) * 4.0), 0.06),
+            ("beer_lambert_grid", GRID_ABSORB_SCENE, 48,
+             np.full(3, 5.0 * np.exp(-1.75)), 0.08)):
+        sd = apilib.load_scene_string(text)
+        check(len(sd.media) == 1, f"{name}: {len(sd.media)} media")
+        (img, st), secs, launches = run_counted(
+            lambda: renderlib.render(sd, spp=spp, device=dev), K1, K2)
+        got = img.mean(axis=(0, 1))
+        ok = bool(np.allclose(got, want, rtol=rtol))
+        line(f"transport_{name}", got=got.tolist(), want=want.tolist(),
+             rtol=rtol, within_tolerance=ok, wall_seconds=secs,
+             launches=launches)
+        check(ok, f"{name}: {got} against {want}")
+        check(launches["cluster_traverse"] > 0, f"{name}: K1 never launched")
+
+    def sphere(u):
+        z = 1.0 - 2.0 * u[..., 0]
+        r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+        phi = 2.0 * np.pi * u[..., 1]
+        return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+    full = lambda n, v: torch.full((n,), v, device=dev)
+    zeros3 = lambda n: torch.zeros(n, 3, device=dev)
+    for beta in ((0.6, 0.6), (0.4, 0.4)):   # tests/test_hair.py's furnaces
+        N = 200_000
+        k1, k2 = threefry.split(threefry.prng_key(7))
+        wo = sphere(threefry.uniform(k1, (1, 2), dev)).expand(N, 3)
+        wi = sphere(threefry.uniform(k2, (N, 2), dev))
+        f = hairlib.evaluate(wo, wi, full(N, 0.33), zeros3(N), full(N, beta[0]),
+                             full(N, beta[1]))
+        est = ((f * wi[:, 2:3].abs()).mean(0) * 4.0 * np.pi).cpu().numpy()
+        ok = bool(np.allclose(est, 1.0, atol=0.06))
+        line("transport_hair_white_furnace", beta=beta, estimate=est.tolist(),
+             atol=0.06, within_tolerance=ok)
+        check(ok, f"hair white furnace {beta}: {est}")
+    N = 100_000
+    ko, ku = threefry.split(threefry.prng_key(3))
+    wo = sphere(threefry.uniform(ko, (1, 2), dev)).expand(N, 3)
+    wi, f, pdf = hairlib.sample(wo, threefry.uniform(ku, (N, 4), dev),
+                                full(N, -0.25), zeros3(N), full(N, 0.5),
+                                full(N, 0.4))
+    w = torch.where((pdf > 0)[:, None],
+                    f * wi[:, 2:3].abs() / torch.clamp(pdf, min=1e-9)[:, None],
+                    torch.zeros_like(f))
+    est = w.mean(0).cpu().numpy()
+    ok = bool(np.allclose(est, 1.0, atol=0.08))
+    line("transport_hair_white_furnace_sampled", estimate=est.tolist(),
+         atol=0.08, within_tolerance=ok)
+    check(ok, f"sampled hair white furnace: {est}")
+    # a Lambertian Fourier table renders as the same-albedo matte
+    # (tests/test_fourier.py::test_fourier_render_matches_matte)
+    bsdf = os.path.join(REPO, "build", "chip_smoke_lambert.bsdf")
+    os.makedirs(os.path.dirname(bsdf), exist_ok=True)
+    fblib.write_bsdf(bsdf, fblib.make_lambertian_table(albedo=0.5, n_mu=24))
+    sd_f = apilib.load_scene_string(FOURIER_SCENE.format(
+        mat=f'Material "fourier" "string bsdffile" "{bsdf}"'))
+    check(sd_f.materials[-1].kind == apilib.MAT_FOURIER,
+          "the Lambertian table did not load as a Fourier material")
+    sd_m = apilib.load_scene_string(FOURIER_SCENE.format(
+        mat='Material "matte" "rgb Kd" [0.5 0.5 0.5]'))
+    img_f, _ = renderlib.render(sd_f, spp=8, seed=3, device=dev)
+    img_m, _ = renderlib.render(sd_m, spp=8, seed=3, device=dev)
+    rel = abs(img_f.mean() - img_m.mean()) / max(img_m.mean(), 1e-6)
+    line("transport_fourier_vs_matte", fourier_mean=float(img_f.mean()),
+         matte_mean=float(img_m.mean()), rel=float(rel), tol=0.03,
+         finite=bool(np.isfinite(img_f).all()))
+    check(np.isfinite(img_f).all() and rel < 0.03, f"fourier vs matte {rel}")
+
+    # (b) the JAX package's renders on each accel
+    launches_128 = {}
+    for case in TRANSPORT_GOLDEN:
+        z = np.load(os.path.join(REPO, "tests", "golden",
+                                 f"transport128_{case}.npz"))
+        spec = dict(features=json.loads(str(z["features"])),
+                    lookat=str(z["lookat"]),
+                    overrides=json.loads(str(z["overrides"])))
+        for accel in ("clusters", "bvh"):
+            sd = tool.load_case(apilib, spec)
+            if "fourier" in spec["features"]:
+                # a read error would degrade the bowl to matte
+                check(sum(m.kind == apilib.MAT_FOURIER for m in sd.materials)
+                      == 1, f"{case}: the bowl is not a Fourier material")
+            (img, st), secs, launches = run_counted(
+                lambda: renderlib.render(sd, spp=int(z["spp"]),
+                                         seed=int(z["seed"]), accel=accel,
+                                         device=dev), K1, K2)
+            image_check(f"transport_{case}128_{accel}", img, z["img"], *IILE_TOL)
+            line(f"transport_{case}128_{accel}_stats", wall_seconds=secs,
+                 launches=launches, jax_rays=int(z["rays"]), **st)
+            if accel == "clusters":
+                # K2 only as K1's overflow: at most one call a traversal
+                check(launches["cluster_traverse"] > 0, f"{case}: K1 never launched")
+                check(launches["bvh_traverse"] <= launches["cluster_traverse"],
+                      f"{case} clusters: {launches} beyond K1's overflow")
+            else:
+                check(launches["bvh_traverse"] > 0, f"{case}: K2 never launched")
+                check(launches["cluster_traverse"] == 0,
+                      f"{case} bvh: K1 launched {launches['cluster_traverse']}")
+            launches_128[f"{case}_{accel}"] = launches
+
+    # the CLI on the card (quarter resolution)
+    cli_out = os.path.join(OUT_DIR, "atrium_transport_quick.pfm")
+    scene_file = os.path.join(REPO, "scenes", tool.TRANSPORT)
+    rc, secs, launches = run_counted(lambda: climain.main(
+        [scene_file, cli_out, "--quick", "--spp", "2", "--quiet",
+         "--integrator", "volpath"]), K1, K2)
+    cli_img = imglib.read_pfm(cli_out)
+    line("transport_cli_quick", rc=rc, shape=list(cli_img.shape),
+         mean=float(cli_img.mean()), wall_seconds=secs, launches=launches)
+    check(rc == 0 and np.isfinite(cli_img).all() and cli_img.mean() > 0,
+          "the CLI's volpath render")
+
+    # (c) measured: atrium_transport at 512^2, the file's depth, clusters
+    key = threefry.prng_key(0)
+    text = open(scene_file).read()
+    per_pass, runs = {}, {}
+    for name, feats in (("all", tool.FEATURES),
+                        ("no_smoke", [f for f in tool.FEATURES if f != "smoke"])):
+        sd = apilib.load_scene_string(tool.variant(text, feats),
+                                      os.path.dirname(scene_file))
+        cfg = renderlib.make_integrator_config(sd, accel="clusters", device=dev)
+        check(cfg.volumetric and cfg.has_hair and cfg.has_subsurface
+              and cfg.grid_media == (name == "all"), f"{name}: {cfg}")
+        scene, cam = renderlib.build(sd, dev, with_clusters=True)
+        run = renderlib.render_pass_fn(sd, cfg, dev)
+        float(run(scene, cam, key, 0)[0].sum())   # warmup pass
+        times, rays = [], []
+        a1, a2 = K1.LAUNCHES, K2.LAUNCHES
+        for p in range(1, 4):
+            with traversal_sites(K1, K2) as sites:
+                torch.cuda.synchronize()
+                t0 = time.time()
+                L, _, aux = run(scene, cam, key, p)
+                checksum = float(L.sum())              # data-dependent sync
+                times.append(time.time() - t0)
+            rays.append(int(aux["rays"]))
+            check(np.isfinite(checksum), f"non-finite 512^2 {name} pass")
+        per_pass[name] = {"cluster_traverse": (K1.LAUNCHES - a1) / 3,
+                          "bvh_traverse": (K2.LAUNCHES - a2) / 3}
+        check(per_pass[name]["cluster_traverse"] > 0, f"{name}: K1 never launched")
+        line(f"transport512_{name}_clusters", pass_ms=[t * 1e3 for t in times],
+             rays=rays, mrays_per_s=[n / t / 1e6 for n, t in zip(rays, times)],
+             launches_per_pass=per_pass[name], sites_last_pass=sites,
+             power=smi)
+        runs[name] = (run, scene, cam, float(np.median(times)))
+
+    def profile(profiled):
+        """One profiled pass of each, with the tracking loops' spans: their
+        calls, kernel launches, device and host ms."""
+        from torch.autograd import DeviceType
+
+        inner = (pathlib_._delta_track, pathlib_._ratio_track)
+
+        def spanned(span, fn):
+            def wrap(*a, **kw):
+                with torch.profiler.record_function(span):
+                    return fn(*a, **kw)
+            return wrap
+
+        pathlib_._delta_track = spanned("delta_track", inner[0])
+        pathlib_._ratio_track = spanned("ratio_track", inner[1])
+        try:
+            for name, (run, scene, cam, med_s) in runs.items():
+                prof = profiled(f"profile_transport512_{name}",
+                                lambda: float(run(scene, cam, key, 4)[0].sum()),
+                                med_s, f"profile_transport512_{name}.txt",
+                                ("profiled_pass_ms", "median_pass_ms"),
+                                spans=("delta_track", "ratio_track"))
+                spans = {}
+                for sp in ("delta_track", "ratio_track"):
+                    host = [e for e in prof.events() if e.name == sp
+                            and e.device_type == DeviceType.CPU]
+                    ranges = [e for e in prof.events() if e.name == sp
+                              and e.device_type == DeviceType.CUDA]
+                    launches, stack = 0, [c for e in host for c in e.cpu_children]
+                    while stack:
+                        e = stack.pop()
+                        launches += e.name in ("cudaLaunchKernel",
+                                               "cudaLaunchKernelExC",
+                                               "cuLaunchKernel",
+                                               "cuLaunchKernelEx")
+                        stack.extend(e.cpu_children)
+                    # kernel time launched inside the span, the span's
+                    # extent on the device timeline, and its host time
+                    spans[sp] = dict(
+                        calls=len(host), launches=launches,
+                        device_kernel_ms=sum(e.device_time_total
+                                             for e in host) / 1e3,
+                        device_span_ms=sum(e.time_range.elapsed_us()
+                                           for e in ranges) / 1e3,
+                        host_ms=sum(e.cpu_time_total for e in host) / 1e3)
+                line(f"profile_transport512_{name}_tracking", power=smi, **spans)
+        finally:
+            pathlib_._delta_track, pathlib_._ratio_track = inner
+
+    line("transport_phase", wall_seconds=time.time() - t_phase)
+    return dict(per_pass=per_pass, launches_128=launches_128, profile=profile)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
@@ -1094,6 +1446,9 @@ def main():
     # ---- 10. scenes as pbrt-v3 writes them, before any profiler session ----
     scenes_pp = scenes_phase(dev, smi, K1, K2)
 
+    # ---- 11. materials and transport, profiled after phase 8's timing ----
+    transport = transport_phase(dev, smi, K1, K2)
+
     # ---- 8. timing, bounds ----
     # the timed passes come first: a profiler session leaves tracing
     # overhead on the launches that follow it
@@ -1213,12 +1568,14 @@ def main():
          sum_ms=sum(w["ms"] for w in per_wave), power=smi)
     K1.LAUNCHES, K2.LAUNCHES = l1, l2  # timing launches are not main-path ones
 
-    def profiled(name, fn, unprofiled_s, table_file, keys):
+    def profiled(name, fn, unprofiled_s, table_file, keys, spans=()):
         """Device-busy ms of one run of fn under torch.profiler (the rows
         of device events only: an operator's row repeats the time of the
-        kernels it launched) and the idle share against unprofiled_s; the
-        profiled and unprofiled ms are printed under the names in keys,
-        the profiler's table goes to OUT_DIR/table_file."""
+        kernels it launched, and the device rows of the record_function
+        spans named in ``spans`` are ranges, not kernels) and the idle
+        share against unprofiled_s; the profiled and unprofiled ms are
+        printed under the names in keys, the profiler's table goes to
+        OUT_DIR/table_file.  Returns the profile."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -1232,7 +1589,8 @@ def main():
         table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
         with open(os.path.join(OUT_DIR, table_file), "w") as f:
             f.write(table)
-        evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.key not in spans]
         dev_us = sum(e.self_device_time_total for e in evs)
         check(dev_us > 0, "the profiler saw no device time")
         top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
@@ -1243,6 +1601,7 @@ def main():
              idle_share_profiled=1.0 - dev_us / 1e6 / prof_s,
              top=[(e.key[:60], e.count, round(e.self_device_time_total / 1e3, 3))
                   for e in top], power=smi)
+        return prof
 
     for accel, run in runs.items():
         profiled(f"profile_atrium512_pass_{accel}",
@@ -1250,6 +1609,8 @@ def main():
                  float(np.median(res[accel]["times"])),
                  f"profile_atrium512_{accel}.txt",
                  ("profiled_pass_ms", "median_pass_ms"))
+
+    transport["profile"](profiled)
 
     # the first task of the full-width IILE render (4 chunks of 65,536
     # pixels), timed unprofiled and then profiled
@@ -1293,7 +1654,12 @@ def main():
              launches_iile_per_task=iile["per_task"]["cluster_traverse"],
              launches_train_generation_rep=train["generation"]["cluster_traverse"],
              **{f"launches_per_pass_{k}": v["cluster_traverse"]
-                for k, v in scenes_pp.items()}),
+                for k, v in scenes_pp.items()},
+             **{f"launches_per_pass_transport512_{k}": v["cluster_traverse"]
+                for k, v in transport["per_pass"].items()},
+             launches_transport128_clusters=sum(
+                 v["cluster_traverse"] for k, v in
+                 transport["launches_128"].items() if k.endswith("_clusters"))),
         dict(name="bvh_traverse", route="cuda",
              source="pbrt_v3_iile_tpu_torch/csrc/bvh_traverse.cu",
              replaces="pbrt_v3_iile_tpu/ops/intersect_pallas.py:301",
@@ -1306,7 +1672,12 @@ def main():
              launches_iile_bvh=iile["bvh"]["bvh_traverse"],
              launches_train_dataset_bvh=train["gate_bvh"]["bvh_traverse"],
              **{f"launches_per_pass_{k}": v["bvh_traverse"]
-                for k, v in scenes_pp.items()}),
+                for k, v in scenes_pp.items()},
+             **{f"launches_per_pass_transport512_{k}": v["bvh_traverse"]
+                for k, v in transport["per_pass"].items()},
+             launches_transport128_bvh=sum(
+                 v["bvh_traverse"] for k, v in
+                 transport["launches_128"].items() if k.endswith("_bvh"))),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

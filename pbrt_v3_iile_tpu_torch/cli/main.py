@@ -2,7 +2,8 @@
 
 Usage:
   python -m pbrt_v3_iile_tpu_torch.cli.main scene.pbrt [out.pfm] \
-      [--integrator path|directlighting|whitted|ambientocclusion|iispt] \
+      [--integrator path|volpath|directlighting|whitted|ambientocclusion|\
+                    iispt] \
       [--spp N] [--seed S] [--accel bvh|clusters] [--compact] \
       [--device cuda|cpu] [--quick] [--verbose | --quiet] [--stats] \
       [--filmCheckpoint FILE [--checkpointEvery N]] \
@@ -25,6 +26,9 @@ and ``#DIRECTPROGRESS!<f>`` as the tasks and direct passes finish, and
 ``#REFRESH!`` (the reference's directoryControlThread, iispt.cpp:749-787).
 ``--checkpoint`` renders with a trained net: a ``ml/train.py``
 checkpoint pickle, or a flat npz (``.npz``).
+
+``volpath`` renders participating media (homogeneous and grid-density);
+``path`` renders them too when the scene has any, as the reference does.
 
 Scenes are parsed by the port's own ``scene/api.py`` and images written
 through its ``utils/image.py`` (.pfm, .png tonemapped, .exr).
@@ -63,7 +67,7 @@ def main(argv=None):
     ap.add_argument("--spp", type=int, default=None,
                     help="override the sampler's pixelsamples")
     ap.add_argument("--integrator", default=None,
-                    choices=["path", "directlighting", "whitted",
+                    choices=["path", "volpath", "directlighting", "whitted",
                              "ambientocclusion", "iispt"],
                     help="override the scene's integrator")
     ap.add_argument("--iileIndirect", "--iileIndirectTasks", type=int,

@@ -150,7 +150,8 @@ def _mis_stage(scene, cam, R, probe_valid, cam_look, cam_orig, right, up,
     wo_l = vm.to_local(ff_wo, t_f, b_f, ns)
     slots = (Np, 4, S)
     params_b = bsdflib.BsdfParams(**{
-        f: (v[:, None, None].expand(slots) if v.ndim == 1
+        f: (v if not torch.is_tensor(v)
+            else v[:, None, None].expand(slots) if v.ndim == 1
             else v[:, None, None, :].expand(*slots, v.shape[-1]))
         for f, v in vars(params).items()})
     frame = lambda v: v[:, None, None, :].expand(*slots, 3)

@@ -1,7 +1,7 @@
 """Render driver: scene file -> device scene -> passes -> film (port of
-``integrators/render.py``: the ``path``, ``directlighting``, ``whitted``
-and ``ambientocclusion`` integrators; ``iispt`` renders through
-``integrators/iispt.py``).
+``integrators/render.py``: the ``path``, ``volpath``, ``directlighting``,
+``whitted`` and ``ambientocclusion`` integrators; ``iispt`` renders
+through ``integrators/iispt.py``).
 
 Each pass is one wavefront of 1 spp over the image (or over row chunks
 when the image exceeds ``max_wave`` rays); passes loop on the host and
@@ -22,6 +22,7 @@ from ..ops import camera as camlib
 from ..ops import film as filmlib
 from ..ops import samplers as smplr
 from ..ops import threefry
+from ..scene import api as apilib
 from ..scene import device as devlib
 from ..utils import stats as statslib
 from . import ao as aolib
@@ -43,30 +44,39 @@ def resolve_accel(sd, accel: str = None, device="cuda") -> str:
 
 def make_integrator_config(sd, accel: str = None, device="cuda"):
     """Resolve the integrator's config for ``device`` (the card unless the
-    caller asks for the CPU).  ``path`` and ``iispt`` (the path integrator
-    settings; IILE's own stages set theirs), ``directlighting`` (specular
-    paths only, all lights sampled under the "all" strategy), ``whitted``
-    (as the reference maps it: every light sampled, specular paths only)
-    and ``ambientocclusion`` (only the accel is read: ``integrators/ao.py``
-    traces it)."""
+    caller asks for the CPU).  ``path``, ``volpath`` and ``iispt`` (the
+    path integrator settings; IILE's own stages set theirs; a scene with
+    media is volumetric whatever its integrator, and its media, hair and
+    subsurface materials switch on their code), ``directlighting``
+    (specular paths only, all lights sampled under the "all" strategy),
+    ``whitted`` (as the reference maps it: every light sampled, specular
+    paths only) and ``ambientocclusion`` (only the accel is read:
+    ``integrators/ao.py`` traces it)."""
     kind = sd.integrator.kind
     accel = resolve_accel(sd, accel, device)
-    if kind in ("path", "iispt"):
+    has_hair = any(m.kind == apilib.MAT_HAIR for m in sd.materials)
+    if kind in ("path", "volpath", "iispt"):
+        media = sd.media
         return pathlib_.PathConfig(
             max_depth=sd.integrator.max_depth,
             rr_threshold=sd.integrator.rr_threshold,
             accel=accel,
-            spatial_lights=sd.integrator.light_strategy == "spatial")
+            spatial_lights=sd.integrator.light_strategy == "spatial",
+            volumetric=kind == "volpath" or len(media) > 0,
+            grid_media=any(m.density is not None for m in media),
+            has_hair=has_hair,
+            has_subsurface=any(m.kind == apilib.MAT_SUBSURFACE
+                               for m in sd.materials))
     if kind in ("directlighting", "whitted"):
         return pathlib_.PathConfig(
             max_depth=sd.integrator.max_depth,
             nee_all=kind == "whitted" or sd.integrator.dl_strategy == "all",
-            direct_only=True, accel=accel)
+            direct_only=True, accel=accel, has_hair=has_hair)
     if kind == "ambientocclusion":
         return pathlib_.PathConfig(max_depth=sd.integrator.max_depth,
                                    accel=accel)
     raise NotImplementedError(
-        f"integrator {kind!r} is not ported yet (ROADMAP Queue 1)")
+        f"integrator {kind!r} is not ported yet (ROADMAP Queue 1 item 9)")
 
 
 def build(sd, device, with_clusters: bool = None):

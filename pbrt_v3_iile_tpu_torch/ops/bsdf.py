@@ -4,8 +4,10 @@ Every material is a fixed set of lobes (diffuse, glossy microfacet,
 specular reflection, specular transmission) evaluated for the whole
 wavefront with per-ray masks; lobe selection is luminance-weighted.
 All directions are in the local shading frame (+z = shading normal).
-Hair and Fourier materials are not ported (the device scene refuses
-them); disney, substrate and translucent are.
+The hair fiber lobe (``ops/hair.py``) and the exact Fourier table
+(``ops/fourierbsdf.py``, sampled through its fitted proxy lobes) replace
+the lobe mix on their lanes; each is computed only when the scene holds
+such a material.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from ..scene.api import (
     MAT_FOURIER, MAT_SUBSURFACE,
 )
 from ..utils import vecmath as vm
+from . import fourierbsdf as fourierlib
+from . import hair as hairlib
 from . import sampling as smp
 
 INV_PI = 1.0 / math.pi
@@ -38,7 +42,13 @@ class BsdfParams:
     metal_eta: torch.Tensor  # (N,3)
     metal_k: torch.Tensor    # (N,3)
     sigma: torch.Tensor      # (N,) oren-nayar sigma (degrees)
-    aux: torch.Tensor        # (N,8) disney extras
+    aux: torch.Tensor        # (N,8) disney extras; hair: beta_m, beta_n,
+                             # alpha (degrees), with sigma_a in kd
+    h: torch.Tensor = None   # (N,) hair fiber offset in [-1, 1]
+                             # (hair.cpp h = -1 + 2v); None: 0
+    fourier_id: torch.Tensor = None  # (N,) i32 Fourier table or -1
+    fourier: object = None   # the scene's FourierDev, None without one
+    has_hair: bool = False   # the scene holds a hair material
 
 
 def roughness_to_alpha(rough):
@@ -81,11 +91,21 @@ def gather_params(scene, mat_id, uv=None, p=None, tex_width=None,
                         torch.clamp(rough, min=1e-3))
     alpha = torch.where(kind == MAT_DISNEY,
                         torch.clamp(rough * rough, min=1e-3), alpha)
+    # hair: tessellated curves carry the across-fiber coordinate in v, so
+    # the ray's fiber offset is h = -1 + 2 frac(v)
+    h = None
+    if scene.has_hair and uv is not None:
+        v_coord = uv[..., 1] - torch.floor(uv[..., 1])
+        h = torch.clamp(-1.0 + 2.0 * v_coord, -0.9995, 0.9995)
+    fourier = scene.fourier
     return BsdfParams(kind=kind, kd=kd, ks=ks, kr=g(scene.mat_kr),
                       kt=g(scene.mat_kt), alpha=alpha, eta=g(scene.mat_eta),
                       metal_eta=g(scene.mat_metal_eta),
                       metal_k=g(scene.mat_metal_k), sigma=sigma,
-                      aux=g(scene.mat_aux))
+                      aux=g(scene.mat_aux), h=h,
+                      fourier_id=(g(scene.mat_fourier_id) if fourier is not None
+                                  else None),
+                      fourier=fourier, has_hair=scene.has_hair)
 
 
 # ---------------------------------------------------------------------------
@@ -130,6 +150,20 @@ def fr_conductor(cos_i, eta, k):
 def schlick_fresnel(rs, cos_i):
     pw = torch.pow(torch.clamp(1.0 - cos_i, 0.0, 1.0), 5.0)[..., None]
     return rs + pw * (1.0 - rs)
+
+
+def fresnel_moment1(eta):
+    """First moment of the Fresnel reflectance, the polynomial fits of
+    bssrdf.cpp FresnelMoment1."""
+    e2 = eta * eta
+    e3 = e2 * eta
+    e4 = e3 * eta
+    e5 = e4 * eta
+    lo = (0.45966 - 1.73965 * eta + 3.37668 * e2 - 3.904945 * e3
+          + 2.49277 * e4 - 0.68441 * e5)
+    hi = (-4.61686 + 11.1136 * eta - 10.4646 * e2 + 5.11455 * e3
+          - 1.27198 * e4 + 0.12746 * e5)
+    return torch.where(eta < 1.0, lo, hi)
 
 
 # ---------------------------------------------------------------------------
@@ -237,8 +271,16 @@ def _same_hemisphere(a, b):
     return (a[..., 2] * b[..., 2]) > 0.0
 
 
-def evaluate(p: BsdfParams, wo, wi):
-    """(f (N,3), pdf (N,)) of the non-delta lobes (BSDF::f + BSDF::Pdf)."""
+def _hair_args(p: BsdfParams):
+    h = p.h if p.h is not None else torch.zeros_like(p.eta)
+    return h, p.kd, p.aux[..., 0], p.aux[..., 1], p.aux[..., 2], p.eta
+
+
+def evaluate(p: BsdfParams, wo, wi, enable_hair: bool = None):
+    """(f (N,3), pdf (N,)) of the non-delta lobes (BSDF::f + BSDF::Pdf).
+
+    enable_hair statically gates the fiber lobe (None: whether the scene
+    holds a hair material)."""
     w = _lobe_weights(p)
     refl = _same_hemisphere(wo, wi)
     cos_o = torch.abs(wo[..., 2])
@@ -337,6 +379,28 @@ def evaluate(p: BsdfParams, wo, wi):
     zero = torch.zeros_like(pdf_diff)
     pdf = (torch.where(valid_d, w[..., 0] * pdf_diff, zero)
            + torch.where(valid_g, w[..., 1] * pdf_gloss, zero))
+
+    # exact FourierBSDF: f from the table, the pdf the proxy lobes' mix;
+    # a transmissive table (kt proxy > 0) makes the diffuse proxy a
+    # two-sided cosine so that transmitted directions are samplable
+    if p.fourier is not None:
+        is_fourier = p.kind == MAT_FOURIER
+        f_four = fourierlib.evaluate_device(p.fourier, p.fourier_id, wo, wi)
+        f = torch.where(is_fourier[..., None], f_four, f)
+        kt_l = _lum(p.kt)
+        pt = kt_l / torch.clamp(_lum(p.kd) + kt_l, min=1e-9)
+        cos_pdf = torch.abs(wi[..., 2]) * smp.INV_PI
+        pdf_diff_2s = torch.where(refl, 1.0 - pt, pt) * cos_pdf
+        pdf_four = (w[..., 0] * pdf_diff_2s
+                    + torch.where(refl & (d > 0.0), w[..., 1] * pdf_gloss, zero))
+        pdf = torch.where(is_fourier, pdf_four, pdf)
+
+    # hair fiber lobe over the full sphere (materials/hair.cpp)
+    if p.has_hair if enable_hair is None else enable_hair:
+        is_hair = p.kind == MAT_HAIR
+        f_h, pdf_h = hairlib.evaluate_pdf(wo, wi, *_hair_args(p))
+        f = torch.where(is_hair[..., None], f_h, f)
+        pdf = torch.where(is_hair, pdf_h, pdf)
     return f, pdf
 
 
@@ -350,8 +414,10 @@ class BsdfSample:
     valid: torch.Tensor            # (N,) bool
 
 
-def sample(p: BsdfParams, wo, u_lobe, u2) -> BsdfSample:
-    """BSDF::Sample_f: u_lobe (N,) picks the lobe, u2 (N,2) the direction."""
+def sample(p: BsdfParams, wo, u_lobe, u2,
+           enable_hair: bool = None) -> BsdfSample:
+    """BSDF::Sample_f: u_lobe (N,) picks the lobe, u2 (N,2) the direction
+    (enable_hair as for evaluate)."""
     w = _lobe_weights(p)
     cdf = torch.cumsum(w, dim=-1)
     lobe = torch.sum((u_lobe[..., None] > cdf).to(torch.int32), dim=-1)
@@ -359,9 +425,21 @@ def sample(p: BsdfParams, wo, u_lobe, u2) -> BsdfSample:
     cos_o = torch.abs(wo[..., 2])
     sign_o = torch.where(wo[..., 2] >= 0.0, 1.0, -1.0)
 
+    # diffuse: the cosine hemisphere on wo's side; a transmissive Fourier
+    # table flips to the far side with probability pt = kt / (kd + kt),
+    # as its two-sided proxy pdf in evaluate
     wi_d = smp.cosine_sample_hemisphere(u2)
+    d_sign = sign_o
+    if p.fourier is not None:
+        is_four_s = p.kind == MAT_FOURIER
+        kt_l_s = _lum(p.kt)
+        pt_s = torch.where(is_four_s,
+                           kt_l_s / torch.clamp(_lum(p.kd) + kt_l_s, min=1e-9),
+                           torch.zeros_like(kt_l_s))
+        u_c0 = torch.clamp(u_lobe / torch.clamp(w[..., 0], min=1e-9), 0.0, 1.0)
+        d_sign = torch.where(is_four_s & (u_c0 < pt_s), -sign_o, sign_o)
     wi_d = wi_d * torch.stack([torch.ones_like(sign_o), torch.ones_like(sign_o),
-                               sign_o], dim=-1)
+                               d_sign], dim=-1)
     wh = tr_sample_wh(wo, u2, p.alpha)
     wi_g = vm.reflect(wo, wh)
     wi_r = torch.stack([-wo[..., 0], -wo[..., 1], wo[..., 2]], dim=-1)
@@ -386,7 +464,8 @@ def sample(p: BsdfParams, wo, u_lobe, u2) -> BsdfSample:
                      torch.where((lobe == 1)[..., None], wi_g,
                                  torch.where((lobe == 2)[..., None], wi_r, wi_t)))
     is_delta = lobe >= 2
-    f_sm, pdf_sm = evaluate(p, wo, wi)
+    # the smooth lobes' f and pdf (hair has its own sampler below)
+    f_sm, pdf_sm = evaluate(p, wo, wi, enable_hair=False)
 
     cos_i = torch.abs(wi[..., 2])
     fr_sr = torch.where(is_glass[..., None], fr_g[..., None],
@@ -403,11 +482,34 @@ def sample(p: BsdfParams, wo, u_lobe, u2) -> BsdfSample:
 
     valid = pdf > 0.0
     valid = valid & torch.where(lobe == 3, t_ok, True)
+    # diffuse and glossy lobes stay on wo's side, but for the Fourier
+    # two-sided diffuse proxy, whose far-side flips are intended
     same_h = _same_hemisphere(wo, wi)
-    valid = valid & torch.where(lobe <= 1, same_h, True)
+    hemi_ok, is_trans = same_h, lobe == 3
+    if p.fourier is not None:
+        hemi_ok = same_h | (is_four_s & (lobe == 0))
+        is_trans = is_trans | (is_four_s & (lobe == 0) & ~same_h)
+    valid = valid & torch.where(lobe <= 1, hemi_ok, True)
     valid = valid & (cos_o > 0.0)
+
+    # hair fiber sampling (hair.cpp HairBSDF::Sample_f)
+    if p.has_hair if enable_hair is None else enable_hair:
+        is_hair = p.kind == MAT_HAIR
+        # four uniforms from the three: the phi sample's low bits demuxed
+        # for the conditional theta dimension (the reference's DemuxFloat)
+        u4 = torch.stack([u_lobe, u2[..., 0], u2[..., 1],
+                          torch.remainder(u2[..., 0] * 4096.0, 1.0)], dim=-1)
+        wi_h, f_h, pdf_h = hairlib.sample(wo, u4, *_hair_args(p))
+        wi = torch.where(is_hair[..., None], wi_h, wi)
+        f = torch.where(is_hair[..., None], f_h, f)
+        pdf = torch.where(is_hair, pdf_h, pdf)
+        is_delta = is_delta & ~is_hair
+        # hair scatters over the full sphere: a crossing of the hemisphere
+        # is a transmission, so that the ray's origin moves to that side
+        is_trans = torch.where(is_hair, ~_same_hemisphere(wo, wi), is_trans)
+        valid = torch.where(is_hair, pdf > 0.0, valid)
     return BsdfSample(wi=wi, f=f, pdf=pdf, is_specular=is_delta,
-                      is_transmission=lobe == 3, valid=valid)
+                      is_transmission=is_trans, valid=valid)
 
 
 def has_nonspecular(p: BsdfParams):

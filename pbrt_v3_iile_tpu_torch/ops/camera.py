@@ -33,13 +33,13 @@ class Camera:
 
 def make_camera(desc, film, device) -> Camera:
     """Camera from a CameraDesc/FilmDesc; realistic lenses and camera
-    motion are not ported yet (ROADMAP Queue 1, slice 3)."""
+    motion are not ported yet (ROADMAP Queue 1 item 8)."""
     if desc.kind == "realistic" and getattr(desc, "lens_file", ""):
         raise NotImplementedError("realistic camera is not ported yet "
-                                  "(ROADMAP slice 3)")
+                                  "(ROADMAP Queue 1 item 8)")
     if getattr(desc, "cam_to_world_end", None) is not None:
         raise NotImplementedError("camera motion blur is not ported yet "
-                                  "(ROADMAP slice 3)")
+                                  "(ROADMAP Queue 1 item 8)")
     xres, yres = film.x_resolution, film.y_resolution
     aspect = xres / yres
     if desc.screen_window is not None:

@@ -78,6 +78,22 @@ def uniform(key, shape, device=None):
     return fbits.view(torch.float32) - 1.0
 
 
+def uniform_folded(key, first: int, count: int, shape, device=None):
+    """``uniform(fold_in(key, i), shape)`` for i in first .. first + count
+    - 1, stacked on a leading axis: one hash over every row (the keys
+    broadcast as (count, 1) tensors)."""
+    keys = [fold_in(key, i) for i in range(first, first + count)]
+    k0 = torch.tensor([k[0] for k in keys], dtype=torch.int64,
+                      device=device)[:, None]
+    k1 = torch.tensor([k[1] for k in keys], dtype=torch.int64,
+                      device=device)[:, None]
+    n = math.prod(shape)
+    lo = torch.arange(n, dtype=torch.int64, device=device)[None, :]
+    y0, y1 = hash2x32(k0, k1, lo >> 32, lo & M32)
+    fbits = (((y0 ^ y1) >> 9) | 0x3F800000).to(torch.int32)
+    return (fbits.view(torch.float32) - 1.0).reshape(count, *shape)
+
+
 def randint(key, shape, minval: int, maxval: int, device=None):
     """``jax.random.randint(key, shape, minval, maxval, int32)``."""
     k1, k2 = split(key)

@@ -7,9 +7,7 @@ everything to world-space numpy arrays (triangle soup + analytic spheres +
 SoA material/light tables) ready for device upload.
 
 The port's own copy of the JAX package's jax-free ``scene/api.py``: the
-port imports nothing of that package.  One change: a Fourier material
-raises NotImplementedError here (ROADMAP slice 3), as the device build
-does for the other unported materials.
+port imports nothing of that package.
 """
 
 from __future__ import annotations
@@ -548,8 +546,36 @@ class Api:
         m = MaterialRecord()
         m.kind = MATERIAL_IDS.get(kind, MAT_MATTE)
         if m.kind == MAT_FOURIER:
-            raise NotImplementedError(
-                "fourier material is not ported yet (ROADMAP slice 3)")
+            # FourierBSDF (ref: materials/fourier.cpp): load the .bsdf
+            # table; render path evaluates it EXACTLY in-graph
+            # (ops/fourierbsdf.evaluate_device) while importance sampling
+            # uses lobe-fit proxies (kd/ks/alpha — unbiased: exact f over
+            # proxy pdf); matte fallback on read error
+            m.kind = MAT_MATTE
+            fname = ps.find_one_string("bsdffile", "")
+            try:
+                from ..ops import fourierbsdf as fblib
+                table = fblib.read_bsdf(
+                    fname if os.path.isabs(fname)
+                    else os.path.join(self.base_dir, fname))
+                kd, ks, alpha, eta, resid = fblib.fit_lobes(table)
+                m.kind = MAT_FOURIER
+                m.fourier_table = table
+                m.kd = np.asarray(kd, np.float32).reshape(3)
+                m.ks = np.maximum(np.asarray(ks, np.float32).reshape(3),
+                                  1e-3)
+                m.roughness = float(alpha)
+                m.eta = float(eta)
+                m.remap_roughness = False
+                # transmissive tables (eta != 1) get a transmission
+                # proxy weight so BSDF sampling covers the far
+                # hemisphere (ADVICE r2: a reflection-only proxy pdf
+                # silently loses indirect transmitted paths)
+                if abs(float(eta) - 1.0) > 1e-3:
+                    m.kt = np.maximum(m.kd, 1e-2)
+            except Exception as e:
+                log.warning(f"fourier material '{fname}': {e}; "
+            f"degrading to matte")
         # defaults follow the Create*Material factories (src/materials/*.cpp)
         if kind == "matte":
             m.kd = ps.find_one_rgb("Kd", [0.5, 0.5, 0.5])

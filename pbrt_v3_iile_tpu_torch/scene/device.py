@@ -6,14 +6,15 @@ reference's names; ``state.scene_from_numpy`` moves them to a device as
 a ``DeviceScene``.  The reference module imports jax at the top, so its
 numpy helpers are carried here as copies.
 
-Covered: triangles (with their ptex face index), spheres, the BVH
-(``nodes_packed``/``tris_packed``), materials, lights (point, spot,
-distant, infinite, goniometric and projection lights with their stacked
-direction maps, triangle and sphere area lights, with the power and
-spatial selection tables), the constant and map environment, world
-bounds, and the cluster pack of the fused traversal kernel.  Scenes with
-motion blur, media, a kd-tree, Fourier, hair or subsurface materials
-raise.
+Covered: triangles (with their ptex face index and their media
+interfaces), spheres, the BVH (``nodes_packed``/``tris_packed``),
+materials (with the subsurface diffusion lengths and the Fourier tables,
+``ops/fourierbsdf.py``), lights (point, spot, distant, infinite,
+goniometric and projection lights with their stacked direction maps,
+triangle and sphere area lights, with the power and spatial selection
+tables), the constant and map environment, homogeneous and grid-density
+media, world bounds, and the cluster pack of the fused traversal kernel.
+Scenes with motion blur or a kd-tree raise (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import os
 import numpy as np
 
 from ..ops import bvh as bvhlib
+from ..ops import fourierbsdf as fourierlib
 from ..utils import log
 from . import api as apilib
 from . import textures as texlib
@@ -31,26 +33,13 @@ from .state import DeviceScene, scene_from_numpy
 __all__ = ["DeviceScene", "build_device_scene", "build_leaves",
            "scene_from_numpy"]
 
-_UNPORTED_MATERIALS = {
-    apilib.MAT_HAIR: "hair", apilib.MAT_FOURIER: "fourier",
-    apilib.MAT_SUBSURFACE: "subsurface"}
-
-
 def _check_supported(sd):
     if getattr(sd, "has_motion", False):
         raise NotImplementedError("object motion blur is not ported yet "
-                                  "(ROADMAP slice 3)")
-    if getattr(sd, "media", []):
-        raise NotImplementedError("participating media are not ported yet "
-                                  "(ROADMAP slice 3)")
+                                  "(ROADMAP Queue 1 item 8)")
     if getattr(sd, "accelerator", "bvh") == "kdtree":
         raise NotImplementedError("the kd-tree aggregate is not ported yet "
-                                  "(ROADMAP slice 3)")
-    for m in sd.materials:
-        if m.kind in _UNPORTED_MATERIALS:
-            raise NotImplementedError(
-                f"{_UNPORTED_MATERIALS[m.kind]} material is not ported yet "
-                "(ROADMAP slice 3)")
+                                  "(ROADMAP Queue 1 item 8)")
 
 
 def _smooth_from_geo(p):
@@ -89,6 +78,9 @@ def build_leaves(sd, with_clusters: bool = False) -> dict:
         face = np.concatenate(
             [b.get("face", np.arange(b["p"].shape[0], dtype=np.int32))
              for b in sd.tri_blocks])
+        m_in, m_out = (np.concatenate(
+            [b.get(k, np.full(b["p"].shape[0], -1, np.int32))
+             for b in sd.tri_blocks]) for k in ("med_in", "med_out"))
     else:
         p = np.zeros((1, 3, 3), np.float32)
         ns = np.zeros((1, 3, 3), np.float32)
@@ -96,6 +88,8 @@ def build_leaves(sd, with_clusters: bool = False) -> dict:
         mat = np.zeros(1, np.int32)
         lig = np.full(1, -1, np.int32)
         face = np.zeros(1, np.int32)
+        m_in = np.full(1, -1, np.int32)
+        m_out = np.full(1, -1, np.int32)
 
     flat = bvhlib.build_bvh(p)
     order = flat.prim_order
@@ -103,6 +97,7 @@ def build_leaves(sd, with_clusters: bool = False) -> dict:
     # that both traversal kernels return
     p, ns, uv, mat, lig = p[order], ns[order], uv[order], mat[order], lig[order]
     face = face[order]
+    m_in, m_out = m_in[order], m_out[order]
     e1 = p[:, 1] - p[:, 0]
     e2 = p[:, 2] - p[:, 0]
     ng = _geo_normal(p)
@@ -136,7 +131,15 @@ def build_leaves(sd, with_clusters: bool = False) -> dict:
     ks_tex = np.full(M, -1, np.int32)
     sg_tex = np.full(M, -1, np.int32)
     ro_tex = np.full(M, -1, np.int32)
+    fr_id = np.full(M, -1, np.int32)
+    fourier_tables = []
+    sss_d = np.zeros((M, 3), np.float32)
     for i, m in enumerate(sd.materials):
+        if getattr(m, "fourier_table", None) is not None:
+            fr_id[i] = len(fourier_tables)
+            fourier_tables.append(m.fourier_table)
+        if getattr(m, "sss_d", None) is not None:
+            sss_d[i] = m.sss_d
         kd_tex[i] = tex_ids.get(m.kd_tex, -1)
         ks_tex[i] = tex_ids.get(m.ks_tex, -1)
         sg_tex[i] = tex_ids.get(m.sigma_tex, -1)
@@ -229,6 +232,7 @@ def build_leaves(sd, with_clusters: bool = False) -> dict:
     lmap = _build_light_maps(sd, L)
 
     env = _build_env_map(sd)
+    med = _build_media(sd)
 
     wmin = p.min(axis=(0, 1)) if p.size else np.zeros(3)
     wmax = p.max(axis=(0, 1)) if p.size else np.ones(3)
@@ -362,6 +366,7 @@ def build_leaves(sd, with_clusters: bool = False) -> dict:
         mat_metal_eta=meta, mat_metal_k=mk_k, mat_sigma=sigma,
         mat_remap=remap, mat_aux=mat_aux, mat_kd_tex=kd_tex,
         mat_ks_tex=ks_tex, mat_sigma_tex=sg_tex, mat_rough_tex=ro_tex,
+        mat_sss_d=sss_d, mat_fourier_id=fr_id,
         light_kind=lkind, light_L=lL, light_pos=lpos, light_dir=ldir,
         light_cos_total=lct, light_cos_falloff=lcf, light_two_sided=l2s,
         light_sphere=lsph, light_tri_off=l_off, light_tri_cnt=l_cnt,
@@ -371,6 +376,8 @@ def build_leaves(sd, with_clusters: bool = False) -> dict:
         light_proj_ay=lmap["proj_ay"],
         ltri_p0=ltri_p0, ltri_e1=ltri_e1, ltri_e2=ltri_e2, ltri_ng=ltri_ng,
         ltri_area=ltri_area, ltri_cdf=ltri_cdf, ltri_light=ltri_light,
+        tri_med_in=m_in, tri_med_out=m_out,
+        camera_medium=np.int32(sd.camera_medium),
         env_img=env["img"], env_marg_cdf=env["marg"],
         env_cond_cdf=env["cond"], env_pdf=env["pdf"],
         env_to_world=env["to_world"], env_world_to=env["world_to"],
@@ -382,7 +389,11 @@ def build_leaves(sd, with_clusters: bool = False) -> dict:
         tex_theta=np.float32(tex_theta),
         tex_cone_o=np.asarray(cam.cam_to_world[:3, 3], np.float32),
     )
+    leaves.update(med)
     leaves.update({f"textures.{k}": v for k, v in tex_leaves.items()})
+    if fourier_tables:
+        leaves.update({f"fourier.{k}": v for k, v in
+                       fourierlib.densify_np(fourier_tables).items()})
     if with_clusters:
         from ..ops.clusters_kernel import build_cluster_pack_np
         pack = build_cluster_pack_np(flat, p[:, 0], e1, e2)
@@ -469,6 +480,44 @@ def _build_light_maps(sd, L, MH=64, MW=128):
                 mean_lum=mean_lum,
                 img=(np.stack(maps) if maps
                      else np.ones((1, MH, MW, 3), np.float32)))
+
+
+def _build_media(sd):
+    """The media's coefficients, world-to-medium transforms and density
+    grids, padded to one (G, DZ, DY, DX) stack, as the reference builds
+    them (at least one slot of each)."""
+    D = max(1, len(sd.media))
+    med_a = np.zeros((D, 3), np.float32)
+    med_s = np.zeros((D, 3), np.float32)
+    med_g = np.zeros(D, np.float32)
+    med_gid = np.full(D, -1, np.int32)
+    med_w2m = np.tile(np.eye(4, dtype=np.float32), (D, 1, 1))
+    med_maxd = np.ones(D, np.float32)
+    grids = []
+    for i, mrec in enumerate(sd.media):
+        med_a[i] = mrec.sigma_a
+        med_s[i] = mrec.sigma_s
+        med_g[i] = mrec.g
+        if getattr(mrec, "density", None) is not None:
+            med_gid[i] = len(grids)
+            grids.append(np.asarray(mrec.density, np.float32))
+            med_w2m[i] = np.asarray(mrec.w2m, np.float32)
+            med_maxd[i] = max(float(mrec.density.max()), 1e-9)
+    if grids:
+        dz = max(g.shape[0] for g in grids)
+        dy = max(g.shape[1] for g in grids)
+        dx = max(g.shape[2] for g in grids)
+        med_dens = np.zeros((len(grids), dz, dy, dx), np.float32)
+        med_dims = np.zeros((len(grids), 3), np.int32)
+        for gi, g in enumerate(grids):
+            med_dens[gi, :g.shape[0], :g.shape[1], :g.shape[2]] = g
+            med_dims[gi] = [g.shape[2], g.shape[1], g.shape[0]]  # nx, ny, nz
+    else:
+        med_dens = np.ones((1, 1, 1, 1), np.float32)
+        med_dims = np.ones((1, 3), np.int32)
+    return dict(med_sigma_a=med_a, med_sigma_s=med_s, med_g=med_g,
+                med_grid_id=med_gid, med_w2m=med_w2m, med_density=med_dens,
+                med_grid_dims=med_dims, med_max_density=med_maxd)
 
 
 def _build_env_map(sd):

@@ -2,9 +2,10 @@
 
 ``scene_from_numpy`` takes leaves named as the reference's DeviceScene
 fields (for example ``np.asarray`` of each leaf of a JAX DeviceScene,
-with the cluster pack as ``clusters.*`` and the texture table as
-``textures.*``) and returns the port's DeviceScene on a device, so both
-packages can be fed the identical scene.  Floats become float32 and
+with the cluster pack as ``clusters.*``, the texture table as
+``textures.*`` and the dense Fourier tables as ``fourier.*``) and
+returns the port's DeviceScene on a device, so both packages can be fed
+the identical scene.  Floats become float32 and
 integers int32 at this edge; the scalar counts become python numbers.
 """
 
@@ -16,12 +17,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .api import LIGHT_GONIO, LIGHT_PROJECTION
+from ..ops.fourierbsdf import FourierDev, fourier_from_numpy
+from .api import LIGHT_GONIO, LIGHT_PROJECTION, MAT_HAIR
 from .textures import TextureTable, table_from_numpy
 
 # scalar leaves kept as python numbers (read by the host, never synced)
 _INT_SCALARS = ("n_spheres", "n_lights", "has_env_map", "env_light_id",
-                "bvh4_stack")
+                "bvh4_stack", "camera_medium")
 _FLOAT_SCALARS = ("world_radius", "tex_theta")
 
 
@@ -84,6 +86,8 @@ class DeviceScene:
     mat_ks_tex: torch.Tensor
     mat_sigma_tex: torch.Tensor
     mat_rough_tex: torch.Tensor
+    mat_sss_d: torch.Tensor      # (M,3) subsurface diffusion length
+    mat_fourier_id: torch.Tensor  # (M,) i32 Fourier table or -1
     textures: TextureTable
     # lights
     light_kind: torch.Tensor
@@ -113,6 +117,18 @@ class DeviceScene:
     ltri_area: torch.Tensor
     ltri_cdf: torch.Tensor
     ltri_light: torch.Tensor
+    # participating media (at least one slot each)
+    med_sigma_a: torch.Tensor     # (D,3)
+    med_sigma_s: torch.Tensor     # (D,3)
+    med_g: torch.Tensor           # (D,) Henyey-Greenstein g
+    med_grid_id: torch.Tensor     # (D,) i32 density grid or -1
+    med_w2m: torch.Tensor         # (D,4,4) world to medium (unit cube)
+    med_density: torch.Tensor     # (G,DZ,DY,DX) padded density grids
+    med_grid_dims: torch.Tensor   # (G,3) i32 (nx, ny, nz) of each grid
+    med_max_density: torch.Tensor  # (D,) the grid's majorant (1 if none)
+    tri_med_in: torch.Tensor      # (T,) i32 inside medium or -1, BVH order
+    tri_med_out: torch.Tensor     # (T,) i32 outside medium or -1
+    camera_medium: int
     # environment map
     env_img: torch.Tensor
     env_marg_cdf: torch.Tensor
@@ -133,12 +149,16 @@ class DeviceScene:
     tex_theta: float
     tex_cone_o: torch.Tensor
     clusters: Optional[ClusterPack] = None
+    fourier: Optional[FourierDev] = None   # None: no Fourier material
 
     def __post_init__(self):
         # read once: whether a light carries a goniometric or projection
         # map, so that light sampling skips the map lookups otherwise
         kinds = set(self.light_kind[:self.n_lights].cpu().tolist())
         self.has_map_lights = bool(kinds & {LIGHT_GONIO, LIGHT_PROJECTION})
+        # ... and whether a material is hair, so that BSDF evaluation
+        # skips the fiber lobe otherwise
+        self.has_hair = bool((self.mat_kind == MAT_HAIR).any())
 
     def leaves(self) -> dict:
         """Every leaf as numpy, under the reference's names."""
@@ -147,9 +167,9 @@ class DeviceScene:
             v = getattr(self, f.name)
             if f.name == "textures":
                 out.update({k: t.cpu().numpy() for k, t in v.leaves().items()})
-            elif f.name == "clusters":
+            elif f.name in ("clusters", "fourier"):
                 if v is not None:
-                    out.update({f"clusters.{g.name}":
+                    out.update({f"{f.name}.{g.name}":
                                 getattr(v, g.name).cpu().numpy()
                                 for g in fields(v)})
             elif isinstance(v, torch.Tensor):
@@ -187,6 +207,11 @@ def scene_from_numpy(leaves: dict, device) -> DeviceScene:
                 kw[name] = ClusterPack(**{
                     g.name: _tensor(leaves[f"clusters.{g.name}"], device)
                     for g in fields(ClusterPack)})
+        elif name == "fourier":
+            if "fourier.mu" in leaves:
+                kw[name] = fourier_from_numpy(
+                    {k.split(".", 1)[1]: v for k, v in leaves.items()
+                     if k.startswith("fourier.")}, device)
         elif name in _INT_SCALARS:
             kw[name] = int(np.asarray(leaves[name]))
         elif name in _FLOAT_SCALARS:

@@ -281,3 +281,57 @@ def test_cuda_train_step_matches_cpu_step():
                                                    if ".running_" in k}
         errs = {k: rel(sg[k], sc[k]) for k in held}
         assert max(errs.values()) <= 1e-3, sorted(errs.items(), key=lambda kv: -kv[1])[:4]
+
+
+def _transport_scene(features, lookat=""):
+    """scenes/atrium_transport.pbrt with the named features, at 24^2 and
+    depth 3 (tools/make_transport_golden.py's variant())."""
+    import importlib.util
+    import re
+
+    from pbrt_v3_iile_tpu_torch.scene import api as apilib
+
+    spec = importlib.util.spec_from_file_location(
+        "make_transport_golden",
+        os.path.join(REPO, "tools", "make_transport_golden.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    scenes = os.path.join(REPO, "scenes")
+    text = tool.variant(open(os.path.join(scenes, tool.TRANSPORT)).read(),
+                        features)
+    if lookat:
+        text = re.sub(r"(?m)^LookAt .*$", "LookAt " + lookat, text, count=1)
+    sd = apilib.load_scene_string(text, scenes)
+    sd.film.x_resolution = sd.film.y_resolution = 24
+    sd.integrator.max_depth = 3
+    return sd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["media", "bssrdf", "hair_fourier"])
+def test_cuda_transport_render_matches_cpu_render(path):
+    """The materials-and-transport paths on the card: volpath through fog
+    and the smoke grid, the exact BSSRDF (the vase from close by), hair
+    and the Fourier bowl; render(..., accel="bvh") compacted on the GPU
+    (the BVH kernel for every traversal, the BSSRDF's probe and exit
+    shadow rays among them) against the CPU (the walker) by test_golden's
+    criterion; the clusters accel on the GPU launches the cluster
+    kernel and gives a finite image."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from pbrt_v3_iile_tpu_torch.integrators import render as renderlib
+    from pbrt_v3_iile_tpu_torch.ops import clusters_kernel as k1
+    from pbrt_v3_iile_tpu_torch.ops import intersect_kernel as k2
+
+    table = "-0.95 1.0 1.0  -1.45 0.78 0.3  0 1 0"
+    sd = {"media": lambda: _transport_scene(["fog", "smoke"]),
+          "bssrdf": lambda: _transport_scene(["sss"], table),
+          "hair_fourier": lambda: _transport_scene(["hair", "fourier"])}[path]()
+    n1, n2 = k1.LAUNCHES, k2.LAUNCHES
+    gpu, _ = renderlib.render(sd, spp=2, seed=7, device="cuda", compact=True,
+                              accel="bvh")
+    assert k2.LAUNCHES > n2 and k1.LAUNCHES == n1
+    cpu, _ = renderlib.render(sd, spp=2, seed=7, device="cpu", compact=True)
+    assert np.isfinite(gpu).all() and _golden_close(gpu, cpu)
+    clu, _ = renderlib.render(sd, spp=2, seed=7, device="cuda", compact=True)
+    assert k1.LAUNCHES > n1 and np.isfinite(clu).all() and clu.mean() > 0

@@ -6,7 +6,9 @@ every module of pbrt_v3_iile_tpu_torch imports (the training modules
 ``utils/{stats,config}`` among them), a 4x4 scene parsed by the port's
 own ``scene/api.py`` renders, a scene without a Sampler line (pbrt's
 default, halton), with a procedural texture and a goniometric light,
-renders with ``path``, ``whitted`` and ``ambientocclusion``, the first
+renders with ``path``, ``whitted`` and ``ambientocclusion``, a volpath
+scene with fog, a grid medium, kdsubsurface, Fourier and hair materials
+(``ops/hair.py``, ``ops/fourierbsdf.py``) renders, the first
 scene at 8x8 renders with IILE (1
 task, 1 direct pass, 8x8 hemispheres, the pretrained IISPTNet read from
 its npz), and a narrow net takes a train step on batches made by the
@@ -35,7 +37,7 @@ for name in names:
 assert {"pbrt_v3_iile_tpu_torch." + m for m in (
     "ml.losses", "ml.dataset", "ml.train", "ml.evalstats", "utils.metrics",
     "cli.train", "integrators.ao", "scene.ptex", "utils.stats",
-    "utils.config")} <= set(names)
+    "utils.config", "ops.hair", "ops.fourierbsdf")} <= set(names)
 from pbrt_v3_iile_tpu_torch.scene import api as apilib
 from pbrt_v3_iile_tpu_torch.integrators import render
 sd = apilib.load_scene_string('''
@@ -79,6 +81,46 @@ imgs = iispt.render_iile(sd, indirect_tasks=1, direct_samples=1, hemi_size=8,
                          device="cpu")[:3]
 assert all(x.shape == (8, 8, 3) and np.isfinite(x).all() for x in imgs)
 assert imgs[0].mean() > 0   # one wall: the probes see no lit surface
+sd3 = apilib.load_scene_string('''
+    LookAt 0 1 -4  0 0.5 0  0 1 0
+    Camera "perspective" "float fov" [55]
+    Film "image" "integer xresolution" [6] "integer yresolution" [6]
+    Integrator "volpath" "integer maxdepth" [3]
+    MakeNamedMedium "fog" "string type" "homogeneous"
+      "rgb sigma_a" [0.01 0.01 0.01] "rgb sigma_s" [0.1 0.1 0.1] "float g" [0.3]
+    MediumInterface "" "fog"
+    WorldBegin
+    LightSource "point" "rgb I" [30 30 30] "point from" [0 3 0]
+    Material "kdsubsurface" "rgb Kd" [0.8 0.8 0.8] "float mfp" [0.3]
+    Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+        "point P" [-6 -0.5 4  6 -0.5 4  6 6 4  -6 6 4]
+    Material "fourier" "string bsdffile" "scenes/atrium_transport.bsdf"
+    Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+        "point P" [-6 -0.5 -6  6 -0.5 -6  6 -0.5 4  -6 -0.5 4]
+    AttributeBegin
+      MakeNamedMedium "smoke" "string type" "heterogeneous"
+        "rgb sigma_a" [0.5 0.5 0.5] "rgb sigma_s" [2 2 2]
+        "integer nx" [2] "integer ny" [2] "integer nz" [2]
+        "float density" [0 1 1 0 1 0 0 1]
+        "point p0" [-1 -0.5 -1] "point p1" [1 1.5 1]
+      Material ""
+      MediumInterface "smoke" "fog"
+      Shape "trianglemesh" "point P" [-1 -0.5 -1  1 -0.5 -1  1 1.5 -1  -1 1.5 -1
+          -1 -0.5 1  1 -0.5 1  1 1.5 1  -1 1.5 1]
+        "integer indices" [0 2 1 0 3 2 4 5 6 4 6 7 0 1 5 0 5 4 3 6 2 3 7 6
+          0 7 3 0 4 7 1 2 6 1 6 5]
+    AttributeEnd
+    Material "hair" "float eumelanin" [0.8]
+    Shape "curve" "string type" "cylinder" "point P" [1.5 -0.5 0  1.5 0 0.1
+        1.6 0.5 0  1.5 1 0] "integer splitdepth" [1] "float width0" [0.2]
+        "float width1" [0.1]
+    WorldEnd''', ".")
+assert apilib.MAT_FOURIER in [m.kind for m in sd3.materials]
+cfg3 = render.make_integrator_config(sd3, device="cpu")
+assert (cfg3.volumetric and cfg3.grid_media and cfg3.has_hair
+        and cfg3.has_subsurface)
+img3, _ = render.render(sd3, spp=2, device="cpu")
+assert img3.shape == (6, 6, 3) and np.isfinite(img3).all() and img3.mean() > 0
 import torch
 from pbrt_v3_iile_tpu_torch.ml import dataset, train
 from pbrt_v3_iile_tpu_torch.ops import threefry

@@ -174,8 +174,56 @@ def jax_scene_leaves(ds) -> dict:
             if ds.clusters is not None:
                 for g in fields(ClusterPack):
                     out[f"clusters.{g.name}"] = np.asarray(getattr(ds.clusters, g.name))
+        elif f.name == "fourier":
+            if ds.fourier is not None:
+                for k, v in ds.fourier._asdict().items():
+                    out[f"fourier.{k}"] = np.asarray(v)
         else:
             out[f.name] = np.asarray(getattr(ds, f.name))
     wide, depth = build_bvh4_np(out["nodes_packed"])
     out["bvh4_nodes"], out["bvh4_stack"] = wide, np.int32(depth)
     return out
+
+
+def _transport_tool():
+    """tools/make_transport_golden.py as a module (its top level imports
+    no jax)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_transport_golden",
+        os.path.join(REPO, "tools", "make_transport_golden.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def transport_golden(name):
+    """tests/golden/transport16_<name>.npz and the port's parse of its
+    scene (its features and overrides applied)."""
+    import json
+
+    from pbrt_v3_iile_tpu_torch.scene import api as tapi
+
+    z = np.load(os.path.join(REPO, "tests", "golden", f"transport16_{name}.npz"))
+    case = dict(scene=str(z["scene"]), features=json.loads(str(z["features"])),
+                lookat=str(z["lookat"]), overrides=json.loads(str(z["overrides"])))
+    return z, _transport_tool().load_case(tapi, case)
+
+
+def render_transport_golden(name):
+    """The port's render of a transport16 golden's settings on the CPU
+    (the BVH walker): render(), or with the golden's compact schedule the
+    compacted pass loop.  Returns (image, golden, stats)."""
+    import json
+
+    from pbrt_v3_iile_tpu_torch.integrators import render as trender
+
+    z, sd = transport_golden(name)
+    compact = json.loads(str(z["compact"]))
+    if compact:
+        assert tuple(compact) == trender.COMPACT_SCHEDULE
+    img, st = trender.render(sd, spp=int(z["spp"]), seed=int(z["seed"]),
+                             accel=str(z["accel"]), compact=bool(compact),
+                             device="cpu")
+    return img, z, st
