@@ -4,11 +4,11 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (one line each):
   1. the device: torch's name for it and nvidia-smi's name and power limit;
-  2. build both CUDA kernels from pbrt_v3_iile_tpu_torch/csrc, one nvcc
-     each, in parallel, printing ptxas's registers, shared memory and
-     spills per kernel;
+  2. build the three CUDA sources from pbrt_v3_iile_tpu_torch/csrc (K1, K2
+     with its motion variant, K3), one nvcc each, in parallel, printing
+     ptxas's registers, shared memory and spills per kernel;
   3. build the device scene of scenes/atrium.pbrt on the GPU (with the
-     BVH kernel's 4-wide nodes);
+     BVH kernel's 4-wide nodes and the kd-tree);
   4. the BVH kernel (K2, 4-wide) against its plain version in its own
      order (bvh_traverse_wide_plain: t, prim and barycentrics identical on
      every ray) and against the binary BVH walker of the CPU path (prims
@@ -47,9 +47,9 @@ Phases (one line each):
      (clusters) at the settings of (a): the combined image against the
      same golden at the oracle's atrium-path tolerances, direct and
      indirect readings printed, K1 launched; (c') IILE's direct pass
-     alone (iispt.direct_passes) at 128^2, 64 passes, compacted on
-     clusters with seeds 3 and 4 and uncompacted on bvh with seed 3,
-     each against the C++ direct image at the atrium-direct tolerances;
+     alone (iispt.direct_passes) at 128^2, 64 passes, seed 3, compacted on
+     clusters and uncompacted on bvh, each against the C++ direct image
+     at the atrium-direct tolerances;
      (d) measured, no threshold:
      the full-width render, atrium 512^2, 16 tasks of 121 probes of 32^2,
      16 direct passes, on clusters: wall seconds of the indirect and
@@ -111,8 +111,8 @@ Phases (one line each):
      unsampled (atol 0.06) and sampled (0.08), a Lambertian Fourier table
      against the same-albedo matte (3% of the mean); (b)
      scenes/atrium_transport.pbrt with only its fog, smoke, kdsubsurface
-     vase, hair or Fourier bowl, and with all of them, at 128^2, 16 spp,
-     seed 0, on each accel, against the JAX package's renders
+     vase, hair or Fourier bowl on bvh, and with all of them on each
+     accel, at 128^2, 16 spp, seed 0, against the JAX package's renders
      (tests/golden/transport128_*.npz, made by
      tools/make_transport_golden.py) at phase 7's tolerances, the bowl a
      Fourier material, K1 launched on clusters (K2 there only as its
@@ -125,10 +125,35 @@ Phases (one line each):
      site: closest-hit, shadow, BSSRDF probe, BSSRDF exit shadow), then
      one profiled pass each with the delta- and ratio-tracking loops'
      calls, launches, device and host ms;
-  8. timing (printed, no threshold): each kernel, its plain versions and
-     the torch candidate tables K1 no longer needs, at the main-path
-     shapes, by CUDA events, with each kernel's bound computed from this
-     run's inputs; K2 at every wave of a bvh pass; the atrium 512^2 depth-5 compacted
+  12. cameras and aggregates (run after phase 11 and before phase 8's
+     profiler sessions): (a) K2's motion variant against its plain
+     version (bvh_traverse_wide_plain with times) on two 65,536-ray waves
+     of scenes/atrium_motion.pbrt at 512^2 (primary rays with their
+     shutter times, a cosine bounce from their hits), closest-hit and
+     any-hit, t, prim and barycentrics identical, and against the
+     keyframe-lerping binary walker (phase 4's tolerances); at time 0 on
+     atrium against the static K2, identical; K3 against
+     intersect_kd_plain on phase 4's atrium waves, identical, and
+     against K2 (prims on >= 99.9%); (b) atrium_motion on bvh, atrium
+     with ``Accelerator "kdtree"``, and atrium_lens.pbrt (the realistic
+     camera) on bvh and on clusters, at 128^2, 16 spp, seed 0, against
+     the JAX package's renders (tests/golden/camera128_*.npz, made by
+     tools/make_camera_golden.py) at phase 7's tolerances: K2-motion and
+     nothing else under motion, K3 and nothing else on kdtree, K1 on
+     clusters (K2 only as its overflow), K2 alone on bvh; the CLI's
+     ``--accel kdtree --quick`` render of atrium (no Accelerator line)
+     not black, with K3 launched; (c) measured, no threshold: 512^2 at
+     the file's depth, uncompacted, three passes each of atrium_motion on
+     bvh, atrium on kdtree and atrium_lens on clusters (ms, Mrays/s as
+     path.py counts rays, launches a pass).  ``--cameras-only`` runs
+     phases 1-5 and 12 with the timing of its two kernels, and stops
+     without a result line;
+  8. timing (printed, no threshold): each kernel and the torch
+     candidate tables K1 no longer needs, at the main-path shapes, by
+     CUDA events (each plain version on the call of phase 4, 5 or 12
+     that holds its kernel to it), with each kernel's bound computed
+     from this run's inputs (K3 on atrium's bounce wave, K2-motion on
+     atrium_motion's); K2 at every wave of a bvh pass; the atrium 512^2 depth-5 compacted
      pass as bench.py configures it, with each accel, passes in turns, in
      Mrays/s counted as path.py counts rays, the kernel launches per pass,
      and one profiled pass each: device-busy ms and idle share; then the
@@ -219,6 +244,19 @@ def cuda_ms(fn, reps):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def timed_once(fn):
+    """fn() and its device time in ms by CUDA events: a plain version is
+    timed on the call that holds its kernel to it, not called again."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
 
 
 def bound(ops, nbytes):
@@ -318,15 +356,17 @@ class StageTimer:
 
 
 def run_counted(fn, K1, K2):
-    """fn() with both kernels' launch counts set to 0 just before it:
-    returns its result, its wall seconds and the launches it made."""
-    K1.LAUNCHES = K2.LAUNCHES = 0
+    """fn() with every kernel's launch count set to 0 just before it:
+    returns its result, its wall seconds and the launches it made (K1,
+    K2, K2's motion variant and K3)."""
+    from pbrt_v3_iile_tpu_torch.ops import kd_kernel as K3
+
+    K1.LAUNCHES = K2.LAUNCHES = K2.LAUNCHES_MOTION = K3.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.time()
     out = fn()
     torch.cuda.synchronize()
-    return out, time.time() - t0, {"cluster_traverse": K1.LAUNCHES,
-                                   "bvh_traverse": K2.LAUNCHES}
+    return out, time.time() - t0, launch_counts(K1, K2, K3)
 
 
 def psnr(img, ref):
@@ -423,12 +463,13 @@ def iile_phase(dev, scene_path, smi, K1, K2):
 
     # (c') IILE's direct pass alone at 64 passes against the reference C++
     # renderer's direct image at the atrium-direct tolerances (the direct
-    # image of (c) is only printed): compacted on clusters with seeds 3
-    # and 4, and uncompacted on bvh with seed 3, the same estimator
-    # without the compaction
+    # image of (c) is only printed): compacted on clusters and uncompacted
+    # on bvh, the same estimator without the compaction, seed 3 (a second
+    # compacted seed read the estimator's own top-third offset, JAX's too:
+    # tests/test_torch_path_variants.py holds the pass to the JAX package)
     sd = atrium(128)
     scene, cam = renderlib.build(sd, dev, with_clusters=True)
-    for accel, seed in (("clusters", 3), ("clusters", 4), ("bvh", 3)):
+    for accel, seed in (("clusters", 3), ("bvh", 3)):
         dkey = threefry.fold_in(threefry.prng_key(seed), 5000)
         img, secs, n = counted(lambda: iispt.direct_passes(
             sd, scene, cam, dkey, 64, accel, dev))
@@ -1086,7 +1127,9 @@ def transport_phase(dev, smi, K1, K2):
          finite=bool(np.isfinite(img_f).all()))
     check(np.isfinite(img_f).all() and rel < 0.03, f"fourier vs matte {rel}")
 
-    # (b) the JAX package's renders on each accel
+    # (b) the JAX package's renders: each feature alone on bvh, all of
+    # them on each accel (the all-features render drives every feature on
+    # clusters)
     launches_128 = {}
     for case in TRANSPORT_GOLDEN:
         z = np.load(os.path.join(REPO, "tests", "golden",
@@ -1094,7 +1137,7 @@ def transport_phase(dev, smi, K1, K2):
         spec = dict(features=json.loads(str(z["features"])),
                     lookat=str(z["lookat"]),
                     overrides=json.loads(str(z["overrides"])))
-        for accel in ("clusters", "bvh"):
+        for accel in (("clusters", "bvh") if case == "all" else ("bvh",)):
             sd = tool.load_case(apilib, spec)
             if "fourier" in spec["features"]:
                 # a read error would degrade the bowl to matte
@@ -1217,7 +1260,308 @@ def transport_phase(dev, smi, K1, K2):
     return dict(per_pass=per_pass, launches_128=launches_128, profile=profile)
 
 
+# phase 12: cameras and aggregates.  K3's and K2-motion's fp32 operations,
+# counted from the CUDA sources as the others above
+KD_NODE_OPS = 10   # K3 node: the early-out compare, tplane (sub, mul), the
+                   # near/far tests (5 compares), the push compare and select
+LERP_OPS = 27      # K2-motion: 9 floats of a triangle lerped (sub, mul, add)
+CAMERA_GOLDEN = (("motion", "bvh"), ("kdtree", "kdtree"),
+                 ("realistic", "bvh"), ("realistic", "clusters"))
+CAMERA_FILM, CAMERA_WAVE_ROWS = 512, 128   # phase 12's film, its waves' rows
+
+
+def camera_tool():
+    """tools/make_camera_golden.py (its top level imports no jax): the
+    scenes' names, load_case() and case_from_golden()."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_camera_golden", os.path.join(REPO, "tools", "make_camera_golden.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def launch_counts(K1, K2, K3):
+    return {"cluster_traverse": K1.LAUNCHES, "bvh_traverse": K2.LAUNCHES,
+            "bvh_traverse_motion": K2.LAUNCHES_MOTION,
+            "kd_traverse": K3.LAUNCHES}
+
+
+def cameras_phase(dev, smi, K1, K2, K3, atrium, waves):
+    """Phase 12: cameras and aggregates.  (a) K2's motion variant and K3
+    bit for bit against their plain versions, K3 against K2; (b) the JAX
+    goldens of tools/make_camera_golden.py and the CLI's --accel kdtree;
+    (c) the 512^2 passes measured.  atrium: phase 3's (sd, scene, cam),
+    its scene built with the kd-tree; waves: phase 4's atrium waves.
+    Returns the launches of (b) and (c), the errors of (a), and the
+    inputs of phase 8's timing of both kernels."""
+    from pbrt_v3_iile_tpu_torch.cli import main as climain
+    from pbrt_v3_iile_tpu_torch.integrators import render as renderlib
+    from pbrt_v3_iile_tpu_torch.ops import camera as camlib
+    from pbrt_v3_iile_tpu_torch.ops import intersect as isect
+    from pbrt_v3_iile_tpu_torch.ops import kdtree
+    from pbrt_v3_iile_tpu_torch.ops import sampling as smp
+    from pbrt_v3_iile_tpu_torch.ops import threefry
+    from pbrt_v3_iile_tpu_torch.scene import api as apilib
+    from pbrt_v3_iile_tpu_torch.utils import image as imglib
+    from pbrt_v3_iile_tpu_torch.utils import vecmath as vm
+
+    t_phase = time.time()
+    tool = camera_tool()
+    scenes = os.path.join(REPO, "scenes")
+    sd_a, scene_a, cam_a = atrium
+    check(scene_a.has_kdtree, "phase 3's scene has no kd-tree")
+
+    # the motion scene at 512^2, built once: the numpy BVH over the union
+    # of its sub-keyframes
+    t0 = time.time()
+    sd_m = apilib.load_scene(os.path.join(scenes, tool.MOTION))
+    sd_m.film.x_resolution = sd_m.film.y_resolution = CAMERA_FILM
+    scene_m, cam_m = renderlib.build(sd_m, dev)
+    torch.cuda.synchronize()
+    steps = scene_m.tris_steps_packed
+    line("cameras_motion_scene", seconds=time.time() - t0,
+         sub_keyframes=int(steps.shape[0]), triangles=int(steps.shape[1]),
+         wide_nodes=scene_m.bvh4_nodes.shape[0], stack_bound=scene_m.bvh4_stack,
+         steps_mbytes=steps.nbytes / 1e6,
+         ns_steps_mbytes=scene_m.tri_ns_steps.nbytes / 1e6)
+    check(steps.shape[0] == 7, f"atrium_motion has {steps.shape[0]} sub-keyframes")
+
+    # (a) the motion waves: the primary rays of the film's first 65,536
+    # pixels with their shutter times, and a cosine bounce from their hits
+    # at the same times
+    prep = renderlib.make_wave_prep(sd_m, dev, chunk_rows=CAMERA_WAVE_ROWS)
+    o_p, d_p, _, _, _, _, time_p = prep(cam_m, threefry.prng_key(0), 0, 0)
+    big = torch.full_like(time_p, 1e30)
+    hp = isect.intersect(scene_m, o_p, d_p, big, time=time_p)
+    it = isect.make_interaction(scene_m, o_p, d_p, hp, time=time_p)
+    ng_f = vm.face_forward(it.ng, -d_p)
+    rng = np.random.default_rng(3)
+    u = torch.as_tensor(rng.random((o_p.shape[0], 2), dtype=np.float32), device=dev)
+    tf, bf = vm.coordinate_system(ng_f)
+    d_b = vm.to_world(smp.cosine_sample_hemisphere(u), tf, bf, ng_f)
+    o_b = vm.offset_ray_origin(it.p, ng_f, d_b)
+    mwaves = {"primary": (o_p, d_p, big),
+              "bounce": (o_b, d_b, torch.where(hp.valid, 1e30, -1.0))}
+
+    def k2m(o, d, tm, any_hit=False):
+        return K2.bvh_traverse_cuda(scene_m.bvh4_nodes, scene_m.bvh4_stack,
+                                    scene_m.tris_packed, o, d, tm,
+                                    any_hit=any_hit, time=time_p, tris_steps=steps)
+
+    def k2m_plain(o, d, tm, any_hit=False):
+        return K2.bvh_traverse_wide_plain(scene_m.bvh4_nodes, scene_m.tris_packed,
+                                          o, d, tm, any_hit=any_hit,
+                                          time=time_p, tris_steps=steps)
+
+    k2m_err = k3_err = 0.0
+    plain_ms = {}   # the plain versions' ms on their comparison calls
+    wm = {}   # the keyframe-lerping walker's work on the bounce wave
+    for wname in ("primary", "bounce"):
+        for any_hit in (False, True):
+            o, d, tm = mwaves[wname]
+            tag = f"{wname}{'_anyhit' if any_hit else ''}"
+            got = k2m(o, d, tm, any_hit)
+            want, plain_ms[f"motion_{tag}"] = timed_once(
+                lambda: k2m_plain(o, d, tm, any_hit))
+            same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+            t_abs = float((got[0] - want[0]).abs().max())
+            line(f"K2_motion_vs_wide_plain_{tag}", t_prim_b1_b2_identical=same,
+                 t_max_abs=t_abs, hits=int((got[1] >= 0).sum()))
+            check(all(same), f"K2-motion {tag}: differs from its plain version")
+            k2m_err = max(k2m_err, t_abs)
+            # against the keyframe-lerping binary walker of the CPU path
+            ref = isect.intersect_bvh(scene_m, o, d, tm, any_hit=any_hit,
+                                      time=time_p,
+                                      work=wm if tag == "bounce" else None)
+            if any_hit:
+                frac = float(((got[1] >= 0) == ref.valid).float().mean())
+                line(f"K2_motion_anyhit_vs_walker_{wname}", agree=frac)
+                check(frac >= PRIM_AGREE, f"K2-motion any-hit {wname}: {frac}")
+            else:
+                compare_hits(f"K2_motion_vs_walker_{wname}", got[0], got[1],
+                             ref.t, ref.prim, got[2], got[3], ref.b1, ref.b2)
+    # at time 0 on atrium (its triangles as two equal keyframes) the motion
+    # variant is the static kernel
+    o, d, tm = waves["bounce"]
+    two = scene_a.tris_packed[None].expand(2, -1, -1).contiguous()
+    got = K2.bvh_traverse_cuda(scene_a.bvh4_nodes, scene_a.bvh4_stack,
+                               scene_a.tris_packed, o, d, tm,
+                               time=torch.zeros_like(tm), tris_steps=two)
+    want = K2.bvh_traverse_cuda(scene_a.bvh4_nodes, scene_a.bvh4_stack,
+                                scene_a.tris_packed, o, d, tm)
+    torch.cuda.synchronize()
+    same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+    line("K2_motion_time0_vs_K2_atrium_bounce", t_prim_b1_b2_identical=same)
+    check(all(same), "K2-motion at time 0 differs from the static K2")
+    del two
+
+    # K3 against its plain version and against K2, on phase 4's waves
+    for wname in ("primary", "bounce"):
+        for any_hit in (False, True):
+            o, d, tm = waves[wname]
+            tag = f"{wname}{'_anyhit' if any_hit else ''}"
+            got = K3.kd_traverse_cuda(scene_a, o, d, tm, any_hit=any_hit)
+            want, plain_ms[f"kd_{tag}"] = timed_once(
+                lambda: kdtree.intersect_kd_plain(scene_a, o, d, tm,
+                                                  any_hit=any_hit))
+            want = (want.t, want.prim, want.b1, want.b2)
+            same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+            t_abs = float((got[0] - want[0]).abs().max())
+            line(f"K3_vs_plain_{tag}", t_prim_b1_b2_identical=same,
+                 t_max_abs=t_abs, hits=int((got[1] >= 0).sum()))
+            check(all(same), f"K3 {tag}: differs from intersect_kd_plain")
+            k3_err = max(k3_err, t_abs)
+            k2 = K2.bvh_traverse_cuda(scene_a.bvh4_nodes, scene_a.bvh4_stack,
+                                      scene_a.tris_packed, o, d, tm,
+                                      any_hit=any_hit)
+            if any_hit:
+                frac = float(((got[1] >= 0) == (k2[1] >= 0)).float().mean())
+                line(f"K3_anyhit_vs_K2_{wname}", agree=frac)
+                check(frac >= PRIM_AGREE, f"K3 any-hit vs K2 {wname}: {frac}")
+            else:
+                compare_hits(f"K3_vs_K2_{wname}", got[0], got[1], k2[0], k2[1],
+                             got[2], got[3], k2[2], k2[3])
+
+    # (b) the JAX package's renders; each scene is built once
+    t0 = time.time()
+    sd_l = apilib.load_scene(os.path.join(scenes, tool.LENS_SCENE))
+    scene_l, cam_l = renderlib.build(sd_l, dev, with_clusters=True)
+    line("cameras_lens_scene", seconds=time.time() - t0,
+         lens_elements=int(cam_l.lens_curv.shape[0]),
+         rear_thickness_mm=float(cam_l.lens_thick[-1]) * 1e3)
+    built = {"motion": scene_m, "kdtree": scene_a, "realistic": scene_l}
+    launches_128 = {}
+    for case, accel in CAMERA_GOLDEN:
+        z = np.load(os.path.join(REPO, "tests", "golden", f"camera128_{case}.npz"))
+        sd = tool.load_case(apilib, tool.case_from_golden(z))
+        cam = camlib.make_camera(sd.camera, sd.film, dev)
+        (img, st), secs, n = run_counted(
+            lambda: renderlib.render(sd, spp=int(z["spp"]), seed=int(z["seed"]),
+                                     accel=accel, device=dev,
+                                     prebuilt=(built[case], cam)), K1, K2)
+        image_check(f"cameras_{case}128_{accel}", img, z["img"], *IILE_TOL)
+        line(f"cameras_{case}128_{accel}_stats", wall_seconds=secs, launches=n,
+             jax_rays=int(z["rays"]), **st)
+        others = lambda *ks: all(n[k] == 0 for k in ks)
+        if case == "motion":
+            check(n["bvh_traverse_motion"] > 0 and others(
+                "cluster_traverse", "bvh_traverse", "kd_traverse"),
+                f"motion: {n}: K2-motion alone must carry it")
+        elif accel == "kdtree":
+            check(n["kd_traverse"] > 0 and others(
+                "cluster_traverse", "bvh_traverse", "bvh_traverse_motion"),
+                f"kdtree: {n}: K3 alone must carry it")
+        elif accel == "clusters":
+            check(n["cluster_traverse"] > 0 and others("kd_traverse",
+                                                       "bvh_traverse_motion")
+                  and n["bvh_traverse"] <= n["cluster_traverse"],
+                  f"{case} clusters: {n}")
+        else:
+            check(n["bvh_traverse"] > 0 and others(
+                "cluster_traverse", "kd_traverse", "bvh_traverse_motion"),
+                f"{case} bvh: {n}")
+        launches_128[f"{case}_{accel}"] = n
+
+    # the CLI's --accel kdtree on a scene without an Accelerator line
+    cli_out = os.path.join(OUT_DIR, "atrium_kdtree_quick.pfm")
+    check(apilib.load_scene(os.path.join(scenes, "atrium.pbrt")).accelerator
+          != "kdtree", "atrium.pbrt asks for the kd-tree")
+    rc, secs, n = run_counted(lambda: climain.main(
+        [os.path.join(scenes, "atrium.pbrt"), cli_out, "--accel", "kdtree",
+         "--quick", "--quiet"]), K1, K2)
+    cli_img = imglib.read_pfm(cli_out)
+    line("cameras_cli_kdtree_quick", rc=rc, shape=list(cli_img.shape),
+         mean=float(cli_img.mean()), wall_seconds=secs, launches=n)
+    check(rc == 0 and np.isfinite(cli_img).all() and cli_img.mean() > 0.01,
+          f"the CLI's --accel kdtree render is black: {cli_img.mean()}")
+    check(n["kd_traverse"] > 0, "the CLI's --accel kdtree never launched K3")
+
+    # (c) measured: the 512^2 passes at the file's depth, uncompacted
+    key = threefry.prng_key(0)
+    sd_l.film.x_resolution = sd_l.film.y_resolution = CAMERA_FILM
+    per_pass = {}
+    for name, sd, scene, cam, accel in (
+            ("motion_bvh", sd_m, scene_m, cam_m, "bvh"),
+            ("atrium_kdtree", sd_a, scene_a, cam_a, "kdtree"),
+            ("lens_clusters", sd_l, scene_l,
+             camlib.make_camera(sd_l.camera, sd_l.film, dev), "clusters")):
+        cfg = renderlib.make_integrator_config(sd, accel=accel, device=dev)
+        check(cfg.accel == accel, f"{name}: accel {cfg.accel}")
+        run = renderlib.render_pass_fn(sd, cfg, dev)
+        float(run(scene, cam, key, 0)[0].sum())   # warmup pass
+        times, rays = [], []
+        a = launch_counts(K1, K2, K3)
+        for p in range(1, 4):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            L, _, aux = run(scene, cam, key, p)
+            checksum = float(L.sum())                  # data-dependent sync
+            times.append(time.time() - t0)
+            rays.append(int(aux["rays"]))
+            check(np.isfinite(checksum), f"non-finite 512^2 {name} pass")
+        b = launch_counts(K1, K2, K3)
+        per_pass[name] = {k: (b[k] - a[k]) / 3 for k in a}
+        line(f"cameras512_{name}", pass_ms=[t * 1e3 for t in times], rays=rays,
+             mrays_per_s=[r / t / 1e6 for r, t in zip(rays, times)],
+             launches_per_pass=per_pass[name], power=smi)
+    check(per_pass["motion_bvh"]["bvh_traverse_motion"] > 0,
+          "K2-motion never launched in a 512^2 motion pass")
+    check(per_pass["atrium_kdtree"]["kd_traverse"] > 0,
+          "K3 never launched in a 512^2 kdtree pass")
+    line("cameras_phase", wall_seconds=time.time() - t_phase)
+    return dict(launches_128=launches_128, per_pass=per_pass, k2m_err=k2m_err,
+                k3_err=k3_err, plain_ms=plain_ms, motion_work=wm,
+                motion=(scene_m, mwaves["bounce"], k2m))
+
+
+def camera_kernel_timing(cams, scene, waves, K2, K3, isect, kdtree, smi):
+    """Phase 8's timing of K3 and K2-motion on the 65,536-ray bounce waves
+    (atrium's for K3, atrium_motion's for K2-motion): ms by CUDA events
+    over 20 wrapper calls, the plain versions' ms on phase 12's comparison
+    calls, and each bound from the work these rays need (K3: its plain
+    version's node visits and triangle tests; K2-motion: the
+    keyframe-lerping binary walker's, counted in phase 12, as K2's bound
+    keeps the binary walker's yardstick) against the bytes of the tree,
+    the triangles and the rays.  The launches are not counted."""
+    saved = (K2.LAUNCHES_MOTION, K3.LAUNCHES)
+    o, d, tm = waves["bounce"]
+    scene_m, (om, dm, tmm), k2m = cams["motion"]
+    out = dict(
+        kd_ms=cuda_ms(lambda: K3.kd_traverse_cuda(scene, o, d, tm), 20),
+        kd_anyhit_ms=cuda_ms(lambda: K3.kd_traverse_cuda(scene, o, d, tm,
+                                                         any_hit=True), 20),
+        kd_plain_ms=cams["plain_ms"]["kd_bounce"],
+        motion_ms=cuda_ms(lambda: k2m(om, dm, tmm), 20),
+        motion_anyhit_ms=cuda_ms(lambda: k2m(om, dm, tmm, True), 20),
+        motion_plain_ms=cams["plain_ms"]["motion_bounce"])
+    work, wm = {}, cams["motion_work"]
+    kdtree.intersect_kd_plain(scene, o, d, tm, work=work)
+    kd_ops = work["nodes"] * KD_NODE_OPS + work["tris"] * MOLLER_OPS
+    kd_bytes = (scene.kd_split.nbytes + scene.kd_meta.nbytes
+                + scene.kd_offset.nbytes + scene.kd_prims.nbytes
+                + scene.tris_packed.nbytes + o.shape[0] * (28 + 16))
+    out["kd_bound_ms"], out["kd_bound_by"] = bound(kd_ops, kd_bytes)
+    m_ops = wm["nodes"] * NODE_OPS + wm["tris"] * (MOLLER_OPS + LERP_OPS)
+    m_bytes = (scene_m.nodes_packed.nbytes + scene_m.tris_steps_packed.nbytes
+               + om.shape[0] * (28 + 16 + 4))
+    out["motion_bound_ms"], out["motion_bound_by"] = bound(m_ops, m_bytes)
+    line("camera_kernels_bounce_wave_65536", **out, kd_node_visits=work["nodes"],
+         kd_triangle_tests=work["tris"], kd_gflop=kd_ops / 1e9,
+         kd_mbytes=kd_bytes / 1e6, motion_node_visits=wm["nodes"],
+         motion_triangle_tests=wm["tris"], motion_gflop=m_ops / 1e9,
+         motion_mbytes=m_bytes / 1e6, plain_ms_by_wave=cams["plain_ms"],
+         power=smi)
+    K2.LAUNCHES_MOTION, K3.LAUNCHES = saved
+    return out
+
+
 def main():
+    import sys
+
+    t_start = time.time()
+    cameras_only = "--cameras-only" in sys.argv[1:]
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1241,15 +1585,17 @@ def main():
     from pbrt_v3_iile_tpu_torch.ops import clusters_kernel as K1
     from pbrt_v3_iile_tpu_torch.ops import intersect as isect
     from pbrt_v3_iile_tpu_torch.ops import intersect_kernel as K2
+    from pbrt_v3_iile_tpu_torch.ops import kd_kernel as K3
+    from pbrt_v3_iile_tpu_torch.ops import kdtree
     from pbrt_v3_iile_tpu_torch.ops import sampling as smp
     from pbrt_v3_iile_tpu_torch.ops import threefry
     from pbrt_v3_iile_tpu_torch.utils import vecmath as vm
 
     # ---- 2. build the kernels ----
     t0 = time.time()
-    with ThreadPoolExecutor(2) as ex:   # one nvcc per source, together
-        list(ex.map(lambda n: _build.load(n, verbose=True),
-                    ("bvh_traverse", "cluster_traverse")))
+    sources = ("bvh_traverse", "cluster_traverse", "kd_traverse")
+    with ThreadPoolExecutor(len(sources)) as ex:   # one nvcc per source, together
+        list(ex.map(lambda n: _build.load(n, verbose=True), sources))
     line("build", seconds=time.time() - t0, dir=_build.BUILD_DIR)
 
     # ---- 3. the device scene ----
@@ -1257,12 +1603,16 @@ def main():
     t0 = time.time()
     sd = apilib.load_scene(scene_path)
     sd.film.x_resolution = sd.film.y_resolution = 512
-    scene, cam = renderlib.build(sd, dev, with_clusters=True)
+    scene, cam = renderlib.build(sd, dev, with_clusters=True, with_kdtree=True)
     torch.cuda.synchronize()
+    kd_leaf = (scene.kd_meta & 3) == 3
     line("scene", seconds=time.time() - t0, triangles=scene.tri_p0.shape[0],
          nodes=scene.nodes_packed.shape[0],
          wide_nodes=scene.bvh4_nodes.shape[0], stack_bound=scene.bvh4_stack,
-         clusters=scene.clusters.feat.shape[0])
+         clusters=scene.clusters.feat.shape[0],
+         kd_nodes=scene.kd_meta.shape[0], kd_prim_refs=scene.kd_prims.shape[0],
+         kd_leaves_over_8=int((kd_leaf & (scene.kd_meta >> 2 > kdtree.MAX_PRIMS)
+                               ).sum()))
 
     # ---- 4. K2 vs the plain walker ----
     prep = renderlib.make_wave_prep(sd, dev, chunk_rows=128)
@@ -1296,6 +1646,7 @@ def main():
 
     k2_err = 0.0
     k2_mismatch = {}
+    plain_ms = {}   # the plain versions' ms on their comparison calls
     for wname, (o, d, tm), any_hit in (
             ("primary", waves["primary"], False),
             ("bounce", waves["bounce"], False),
@@ -1306,7 +1657,8 @@ def main():
         torch.cuda.synchronize()
         # the kernel and its plain version do the same rounded operations
         # in the same order: every output must agree bit for bit
-        want = k2_plain(o, d, tm, any_hit)
+        want, plain_ms[f"bvh_wide_plain_{tag}"] = timed_once(
+            lambda: k2_plain(o, d, tm, any_hit))
         same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
         t_abs = float((got[0] - want[0]).abs().max())
         line(f"K2_vs_wide_plain_{tag}", t_prim_b1_b2_identical=same,
@@ -1317,7 +1669,8 @@ def main():
         # exact ties in t (the kernel keeps the smaller prim id) and a t
         # that rounds below its box's tnear (the cull then depends on the
         # visiting order)
-        ref = isect.intersect_bvh(scene, o, d, tm, any_hit=any_hit)
+        ref, plain_ms[f"bvh_walker_{tag}"] = timed_once(
+            lambda: isect.intersect_bvh(scene, o, d, tm, any_hit=any_hit))
         if any_hit:
             va, vb = (got[1] >= 0).cpu().numpy(), ref.valid.cpu().numpy()
             frac = float((va == vb).mean())
@@ -1347,8 +1700,8 @@ def main():
         os_, ds_, ts_ = (x[perm].contiguous() for x in (o, d, tm))
         sorted_waves[wname] = (os_, ds_, ts_)
         t, prim, n_cand = K1.cluster_traverse_cuda(cp, os_, ds_, ts_, maxc)
-        tp, pp, n_plain = K1.cluster_traverse_plain(cp, os_, ds_, ts_, maxc)
-        torch.cuda.synchronize()
+        (tp, pp, n_plain), plain_ms[f"cluster_plain_{wname}"] = timed_once(
+            lambda: K1.cluster_traverse_plain(cp, os_, ds_, ts_, maxc))
         # the kernel does the plain version's rounded operations in the
         # same order (--fmad=false): everything must agree bit for bit
         same_n = bool(torch.equal(n_cand, n_plain))
@@ -1394,6 +1747,14 @@ def main():
     compare_hits("clusters_maxc8_vs_K2_bounce", h8.t, h8.prim, h2.t, h2.prim,
                  agree_min=XALG_AGREE)
     check(K2.LAUNCHES > n2 + 1, "cluster_maxc=8 did not route overflow to K2")
+
+    if cameras_only:   # phases 1-5 and 12 and their kernels' timing
+        cams = cameras_phase(dev, smi, K1, K2, K3, (sd, scene, cam), waves)
+        timing = camera_kernel_timing(cams, scene, waves, K2, K3, isect,
+                                      kdtree, smi)
+        line("cameras_only", launches_128=cams["launches_128"],
+             per_pass=cams["per_pass"], **timing)
+        return
 
     # ---- 6. the main path through render(), with launch counts ----
     sd128 = apilib.load_scene(scene_path)
@@ -1449,7 +1810,11 @@ def main():
     # ---- 11. materials and transport, profiled after phase 8's timing ----
     transport = transport_phase(dev, smi, K1, K2)
 
+    # ---- 12. cameras and aggregates, before any profiler session ----
+    cams = cameras_phase(dev, smi, K1, K2, K3, (sd, scene, cam), waves)
+
     # ---- 8. timing, bounds ----
+    t_timing = time.time()
     # the timed passes come first: a profiler session leaves tracing
     # overhead on the launches that follow it
     def pass_fn(accel):
@@ -1500,15 +1865,15 @@ def main():
             cp, os_, ds_, ts_, maxc), 20),
         "cluster_traverse_anyhit": cuda_ms(lambda: K1.cluster_traverse_cuda(
             cp, os_, ds_, ts_, maxc, any_hit=True), 20),
-        "cluster_plain": cuda_ms(lambda: K1.cluster_traverse_plain(
-            cp, os_, ds_, ts_, maxc), 2),
+        "cluster_plain": plain_ms["cluster_plain_bounce"],
         "candidate_tables": cuda_ms(lambda: K1.candidate_tables(
             cp, os_, ds_, ts_, maxc), 5),
         "bvh_traverse": cuda_ms(lambda: k2(o, d, tm), 20),
-        "bvh_wide_plain": cuda_ms(lambda: k2_plain(o, d, tm), 2),
-        "bvh_walker": cuda_ms(lambda: isect.intersect_bvh(scene, o, d, tm), 2),
+        "bvh_wide_plain": plain_ms["bvh_wide_plain_bounce"],
+        "bvh_walker": plain_ms["bvh_walker_bounce"],
     }
-    line("kernel_ms_bounce_wave_65536", **ms)
+    line("kernel_ms_bounce_wave_65536", **ms, plain_ms_by_wave=plain_ms)
+    k_cams = camera_kernel_timing(cams, scene, waves, K2, K3, isect, kdtree, smi)
 
     # K1's bound: the slab tests of every live group against every box, and
     # the Pluecker tests of the candidates the exact break cannot skip (the
@@ -1586,10 +1951,10 @@ def main():
             fn()
             torch.cuda.synchronize()
             prof_s = time.time() - t0
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+        averages = prof.key_averages()
         with open(os.path.join(OUT_DIR, table_file), "w") as f:
-            f.write(table)
-        evs = [e for e in prof.key_averages()
+            f.write(averages.table(sort_by="cuda_time_total", row_limit=40))
+        evs = [e for e in averages
                if e.device_type == DeviceType.CUDA and e.key not in spans]
         dev_us = sum(e.self_device_time_total for e in evs)
         check(dev_us > 0, "the profiler saw no device time")
@@ -1603,6 +1968,7 @@ def main():
                   for e in top], power=smi)
         return prof
 
+    t_profiles = time.time()
     for accel, run in runs.items():
         profiled(f"profile_atrium512_pass_{accel}",
                  lambda: float(run(scene, cam, key, n_pass + 1)[0].sum()),
@@ -1677,8 +2043,34 @@ def main():
                 for k, v in transport["per_pass"].items()},
              launches_transport128_bvh=sum(
                  v["bvh_traverse"] for k, v in
-                 transport["launches_128"].items() if k.endswith("_bvh"))),
+                 transport["launches_128"].items() if k.endswith("_bvh")),
+             launches_camera128=cams["launches_128"]["realistic_bvh"][
+                 "bvh_traverse"]),
+        dict(name="bvh_traverse_motion", route="cuda",
+             source="pbrt_v3_iile_tpu_torch/csrc/bvh_traverse.cu",
+             replaces="pbrt_v3_iile_tpu/ops/intersect.py:56",
+             replaces_note=("intersect_bvh with time (keyframe lerp at "
+                            ":111-124): an XLA while_loop, no pallas_call"),
+             launches=cams["launches_128"]["motion_bvh"]["bvh_traverse_motion"],
+             max_abs_err=cams["k2m_err"], ms=k_cams["motion_ms"],
+             plain_ms=k_cams["motion_plain_ms"], bound_ms=k_cams["motion_bound_ms"],
+             bound_by=k_cams["motion_bound_by"], library_ms=None,
+             launches_per_pass_motion512=cams["per_pass"]["motion_bvh"][
+                 "bvh_traverse_motion"]),
+        dict(name="kd_traverse", route="cuda",
+             source="pbrt_v3_iile_tpu_torch/csrc/kd_traverse.cu",
+             replaces="pbrt_v3_iile_tpu/ops/kdtree.py:150",
+             replaces_note="intersect_kd: an XLA while_loop, no pallas_call",
+             launches=cams["launches_128"]["kdtree_kdtree"]["kd_traverse"],
+             max_abs_err=cams["k3_err"], ms=k_cams["kd_ms"],
+             plain_ms=k_cams["kd_plain_ms"], bound_ms=k_cams["kd_bound_ms"],
+             bound_by=k_cams["kd_bound_by"], library_ms=None,
+             launches_per_pass_kdtree512=cams["per_pass"]["atrium_kdtree"][
+                 "kd_traverse"]),
     ]
+    line("timing_phase", wall_seconds=time.time() - t_timing,
+         profiles_seconds=time.time() - t_profiles)
+    line("total", wall_seconds=time.time() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

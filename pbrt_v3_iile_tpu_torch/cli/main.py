@@ -4,7 +4,7 @@ Usage:
   python -m pbrt_v3_iile_tpu_torch.cli.main scene.pbrt [out.pfm] \
       [--integrator path|volpath|directlighting|whitted|ambientocclusion|\
                     iispt] \
-      [--spp N] [--seed S] [--accel bvh|clusters] [--compact] \
+      [--spp N] [--seed S] [--accel bvh|clusters|kdtree] [--compact] \
       [--device cuda|cpu] [--quick] [--verbose | --quiet] [--stats] \
       [--filmCheckpoint FILE [--checkpointEvery N]] \
       [--iileIndirect N] [--iileDirect N] [--iispt_hemi_size N] \
@@ -29,6 +29,12 @@ checkpoint pickle, or a flat npz (``.npz``).
 
 ``volpath`` renders participating media (homogeneous and grid-density);
 ``path`` renders them too when the scene has any, as the reference does.
+
+``--accel kdtree`` renders on the kd-tree (built for the render whether or
+not the scene has an ``Accelerator "kdtree"`` line); a scene with object
+motion renders on the BVH's motion variant, and ``Camera "realistic"``
+traces its lens table (``lensfile``, resolved against the scene's
+directory).
 
 Scenes are parsed by the port's own ``scene/api.py`` and images written
 through its ``utils/image.py`` (.pfm, .png tonemapped, .exr).
@@ -86,8 +92,10 @@ def main(argv=None):
     ap.add_argument("--iileControl", default=None,
                     help="control directory for IILE's preview images")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--accel", default=None, choices=["bvh", "clusters"],
-                    help="aggregate (default: clusters on CUDA, bvh on CPU)")
+    ap.add_argument("--accel", default=None,
+                    choices=["bvh", "clusters", "kdtree"],
+                    help="aggregate (default: the scene file's Accelerator, "
+                         "else clusters on CUDA and bvh on CPU)")
     ap.add_argument("--compact", action="store_true",
                     help="compacted-wavefront path loop")
     ap.add_argument("--device", default="cuda", help="torch device")

@@ -94,7 +94,8 @@ def gen_scene_examples(tag, sd, key, grid, reps, gt_spp, hemi, workdir,
         return out
 
     accel = renderlib.resolve_accel(sd, None, device)
-    scene, cam = renderlib.build(sd, device, with_clusters=accel == "clusters")
+    scene, cam = renderlib.build(sd, device, with_clusters=accel == "clusters",
+                                 with_kdtree=accel == "kdtree")
     cam_kind = camlib.KIND.get(sd.camera.kind, 0)
     base = probe_grid(sd.film.x_resolution, sd.film.y_resolution, grid)
     out = []

@@ -64,11 +64,25 @@
 // other refill thresholds, a grid of half the resident blocks) and
 // against the binary kernel it replaced; PERF.md has the readings.
 //
+// The motion variant (kMotion, the same kernel with a compile-time flag:
+// the static kernel's code is unchanged) carries object motion blur, the
+// reference's keyframe-lerping walker (pbrt_v3_iile_tpu/ops/intersect.py:56
+// with time, lerp at :111-124; an XLA while_loop, no pallas_call): each ray
+// has a time in [0, 1], and each triangle it tests is rows seg*T+pid and
+// (seg+1)*T+pid of the (M, T, 12) sub-keyframe stack lerped at tl, with
+// tf = time*(M-1), seg = clip(int(tf), 0, M-2), tl = tf - seg, in the plain
+// version's order (bvh_traverse_wide_plain with time).  The BVH's boxes
+// cover the whole shutter.  A test reads two triangles instead of one.
+//
 // Built with --fmad=false so each product and sum rounds as in the plain
 // PyTorch versions.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "moller.cuh"
 
 namespace {
 
@@ -93,9 +107,20 @@ struct WarpTests {
   float4 ray_d[32];                 // d, prim at the step's start (bits)
   float2 uv[32];
 };
+// ... and in the motion variant each lane's keyframe segment and lerp
+// parameter
+struct WarpTestsMotion : WarpTests {
+  int seg[32];
+  float tl[32];
+};
+template <bool kMotion>
+using WarpTestsT =
+    typename std::conditional<kMotion, WarpTestsMotion, WarpTests>::type;
 
-constexpr size_t kSmemBytes =
-    sizeof(int2) * kShort * kThreads + sizeof(WarpTests) * kWarps;
+template <bool kMotion>
+constexpr size_t smem_bytes() {
+  return sizeof(int2) * kShort * kThreads + sizeof(WarpTestsT<kMotion>) * kWarps;
+}
 
 static_assert((kShort & (kShort - 1)) == 0, "kShort must be a power of two");
 
@@ -104,46 +129,28 @@ __device__ __forceinline__ float comp(const float4& v, int c) {
   return c == 0 ? v.x : (c == 1 ? v.y : (c == 2 ? v.z : v.w));
 }
 
-__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
-                                      float by, float bz) {
-  return ax * bx + ay * by + az * bz;
-}
-
 // (t, prim) as one 64-bit key whose unsigned order is (t, prim)'s for t > 0.
 __device__ __forceinline__ unsigned long long hit_key(float t, int prim) {
   return ((unsigned long long)__float_as_uint(t) << 32) | (unsigned)prim;
 }
 
-// Moller-Trumbore of triangle pid against the ray (o, d): true when the ray
-// meets it at tt > 0, with (tt, u, v).
-__device__ __forceinline__ bool moller(const float4* __restrict__ tris,
-                                       int pid, float ox, float oy, float oz,
-                                       float dx, float dy, float dz,
-                                       float& tt, float& u, float& v) {
-  const float4 r0 = __ldg(tris + 3 * pid);
-  const float4 r1 = __ldg(tris + 3 * pid + 1);
-  const float4 r2 = __ldg(tris + 3 * pid + 2);
-  const float p0x = r0.x, p0y = r0.y, p0z = r0.z;
-  const float e1x = r0.w, e1y = r1.x, e1z = r1.y;
-  const float e2x = r1.z, e2y = r1.w, e2z = r2.x;
-  // pv = d x e2
-  const float pvx = dy * e2z - dz * e2y;
-  const float pvy = dz * e2x - dx * e2z;
-  const float pvz = dx * e2y - dy * e2x;
-  const float det = dot3(e1x, e1y, e1z, pvx, pvy, pvz);
-  const bool det_ok = fabsf(det) > 1e-12f;
-  const float inv = det_ok ? 1.0f / (det == 0.f ? 1.0f : det) : 0.f;
-  const float tvx = ox - p0x, tvy = oy - p0y, tvz = oz - p0z;
-  u = dot3(tvx, tvy, tvz, pvx, pvy, pvz) * inv;
-  // qv = tv x e1
-  const float qvx = tvy * e1z - tvz * e1y;
-  const float qvy = tvz * e1x - tvx * e1z;
-  const float qvz = tvx * e1y - tvy * e1x;
-  v = dot3(dx, dy, dz, qvx, qvy, qvz) * inv;
-  tt = dot3(e2x, e2y, e2z, qvx, qvy, qvz) * inv;
-  return det_ok && u >= 0.f && v >= 0.f && u + v <= 1.f && tt > 0.f;
+// Triangle pid at keyframe segment seg, lerp parameter tl, of the (M, T,
+// 12) stack: r0 + tl * (r1 - r0) per float, as the plain version.
+__device__ __forceinline__ Tri lerp_tri(const float4* __restrict__ steps,
+                                        int n_tris, int seg, float tl,
+                                        int pid) {
+  const Tri a = load_tri(steps, seg * n_tris + pid);
+  const Tri b = load_tri(steps, (seg + 1) * n_tris + pid);
+  return Tri{a.p0x + tl * (b.p0x - a.p0x), a.p0y + tl * (b.p0y - a.p0y),
+             a.p0z + tl * (b.p0z - a.p0z), a.e1x + tl * (b.e1x - a.e1x),
+             a.e1y + tl * (b.e1y - a.e1y), a.e1z + tl * (b.e1z - a.e1z),
+             a.e2x + tl * (b.e2x - a.e2x), a.e2y + tl * (b.e2y - a.e2y),
+             a.e2z + tl * (b.e2z - a.e2z)};
 }
 
+// tris: the (T, 12) table, or in the motion variant the (M, T, 12)
+// sub-keyframes with time (N,), n_steps = M and n_tris = T.
+template <bool kMotion>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 bvh4_traverse_kernel(const float4* __restrict__ wide,
                      const float4* __restrict__ tris,
@@ -152,16 +159,18 @@ bvh4_traverse_kernel(const float4* __restrict__ wide,
                      float* __restrict__ t_out, int* __restrict__ prim_out,
                      float* __restrict__ b1_out, float* __restrict__ b2_out,
                      int n, int any_hit, int* __restrict__ counters,
-                     int2* __restrict__ spill) {
+                     int2* __restrict__ spill, const float* __restrict__ time,
+                     int n_steps, int n_tris) {
   // counters[0]: the next ray to hand out; counters[1]: blocks finished.
   // Both are 0 at the launch, and the last block to finish zeroes them.
   int* next_ray = counters;
   extern __shared__ __align__(16) unsigned char smem[];
   int2* ring = reinterpret_cast<int2*>(smem);
-  WarpTests* tests = reinterpret_cast<WarpTests*>(ring + kShort * kThreads);
+  WarpTestsT<kMotion>* tests =
+      reinterpret_cast<WarpTestsT<kMotion>*>(ring + kShort * kThreads);
 
   const int lane = threadIdx.x & 31;
-  WarpTests& wt = tests[threadIdx.x >> 5];
+  WarpTestsT<kMotion>& wt = tests[threadIdx.x >> 5];
   // stack entry s: in shared memory at my_ring[(s % kShort) * kThreads]
   // while it is among the top kShort, else at my_spill[s * stride]
   int2* my_ring = ring + threadIdx.x;
@@ -174,6 +183,8 @@ bvh4_traverse_kernel(const float4* __restrict__ wide,
   float ix = 0.f, iy = 0.f, iz = 0.f;
   float t = 0.f, b1 = 0.f, b2 = 0.f;
   int prim = -1, node = 0, sp = 0, spilled = 0;
+  int seg = 0;       // motion: the ray's keyframe segment
+  float tl = 0.f;    // ... and lerp parameter
 
   while (true) {
     // ---- refill: the idle lanes take the next consecutive rays ----
@@ -206,6 +217,12 @@ bvh4_traverse_kernel(const float4* __restrict__ wide,
           node = 0;
           sp = 0;
           spilled = 0;
+          if (kMotion) {
+            const float tf = time[r] * (float)(n_steps - 1);
+            seg = (int)tf;
+            seg = seg < 0 ? 0 : (seg > n_steps - 2 ? n_steps - 2 : seg);
+            tl = tf - (float)seg;
+          }
         } else {  // 0 < t' < t_max is impossible: a miss
           t_out[r] = tm;
           prim_out[r] = -1;
@@ -279,6 +296,10 @@ bvh4_traverse_kernel(const float4* __restrict__ wide,
         wt.ray_o[lane] = make_float4(ox, oy, oz, t);
         wt.ray_d[lane] = make_float4(dx, dy, dz, __int_as_float(prim));
         wt.key[lane] = key0;
+        if constexpr (kMotion) {
+          wt.seg[lane] = seg;
+          wt.tl[lane] = tl;
+        }
 #pragma unroll
         for (int k = 0; k < kWidth; ++k) {
           if (hit[k] && child[k] < 0) {
@@ -301,9 +322,14 @@ bvh4_traverse_kernel(const float4* __restrict__ wide,
           own = e & 31;
           const float4 ro = wt.ray_o[own];
           const float4 rd = wt.ray_d[own];
+          Tri tri;
+          if constexpr (kMotion)
+            tri = lerp_tri(tris, n_tris, wt.seg[own], wt.tl[own], pid);
+          else
+            tri = load_tri(tris, pid);
           // below the owner's (t, prim) at the step's start: a lower key
-          pass = moller(tris, pid, ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, tt, u,
-                        v) &&
+          pass = moller_tri(tri, ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, tt, u,
+                            v) &&
                  (tt < ro.w || (tt == ro.w && pid < __float_as_int(rd.w)));
           if (pass) {
             kk = hit_key(tt, pid);
@@ -401,28 +427,57 @@ bvh4_traverse_kernel(const float4* __restrict__ wide,
   }
 }
 
-int g_max_blocks[64];  // per device: resident blocks of the kernel, 0 unknown
+int g_max_blocks[2][64];  // per variant and device: resident blocks of the
+                          // kernel, 0 unknown
 
 // Resident blocks on the current device (the persistent grid), raising the
 // kernel's shared-memory limit on first use; a negative cudaError on failure.
+template <bool kMotion>
 int max_blocks() {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return -(int)err;
-  if (dev < 64 && g_max_blocks[dev] > 0) return g_max_blocks[dev];
-  err = cudaFuncSetAttribute(bvh4_traverse_kernel,
+  int* cached = dev < 64 ? &g_max_blocks[kMotion][dev] : nullptr;
+  if (cached && *cached > 0) return *cached;
+  err = cudaFuncSetAttribute(bvh4_traverse_kernel<kMotion>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kSmemBytes);
+                             (int)smem_bytes<kMotion>());
   if (err != cudaSuccess) return -(int)err;
   int per_sm = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, bvh4_traverse_kernel, kThreads, kSmemBytes);
+      &per_sm, bvh4_traverse_kernel<kMotion>, kThreads, smem_bytes<kMotion>());
   if (err != cudaSuccess) return -(int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return -(int)err;
   if (per_sm <= 0) return -(int)cudaErrorInvalidConfiguration;
-  if (dev < 64) g_max_blocks[dev] = per_sm * sms;
+  if (cached) *cached = per_sm * sms;
   return per_sm * sms;
+}
+
+template <bool kMotion>
+int spill_entries(int depth) {
+  const int b = max_blocks<kMotion>();
+  if (b <= 0) return b;
+  return depth > kShort ? (depth - kShort) * b * kThreads : 0;
+}
+
+template <bool kMotion>
+int launch(const void* wide, const void* tris, const void* o, const void* d,
+           const void* t_max, void* t_out, void* prim_out, void* b1_out,
+           void* b2_out, int n, int any_hit, void* work, void* stream,
+           const void* time, int n_steps, int n_tris) {
+  if (n <= 0) return 0;
+  const int mb = max_blocks<kMotion>();
+  if (mb <= 0) return -mb;
+  const int want = (n + kThreads - 1) / kThreads;
+  const int grid = want < mb ? want : mb;
+  bvh4_traverse_kernel<kMotion>
+      <<<grid, kThreads, smem_bytes<kMotion>(), (cudaStream_t)stream>>>(
+          (const float4*)wide, (const float4*)tris, (const float*)o,
+          (const float*)d, (const float*)t_max, (float*)t_out, (int*)prim_out,
+          (float*)b1_out, (float*)b2_out, n, any_hit, (int*)work,
+          (int2*)work + 1, (const float*)time, n_steps, n_tris);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -431,9 +486,12 @@ int max_blocks() {
 // current device: each thread of the persistent grid keeps kShort in
 // shared memory and spills the rest.  A negative cudaError on failure.
 extern "C" int bvh_traverse_spill_entries(int depth) {
-  const int b = max_blocks();
-  if (b <= 0) return b;
-  return depth > kShort ? (depth - kShort) * b * kThreads : 0;
+  return spill_entries<false>(depth);
+}
+
+// ... for the motion variant's grid.
+extern "C" int bvh_traverse_motion_spill_entries(int depth) {
+  return spill_entries<true>(depth);
 }
 
 // Launches the persistent grid on `stream`.  work: two ints that are 0
@@ -443,15 +501,21 @@ extern "C" int bvh_traverse(const void* wide, const void* tris, const void* o,
                             const void* d, const void* t_max, void* t_out,
                             void* prim_out, void* b1_out, void* b2_out, int n,
                             int any_hit, void* work, void* stream) {
-  if (n <= 0) return 0;
-  const int mb = max_blocks();
-  if (mb <= 0) return -mb;
-  const int want = (n + kThreads - 1) / kThreads;
-  const int grid = want < mb ? want : mb;
-  bvh4_traverse_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      (const float4*)wide, (const float4*)tris, (const float*)o,
-      (const float*)d, (const float*)t_max, (float*)t_out, (int*)prim_out,
-      (float*)b1_out, (float*)b2_out, n, any_hit, (int*)work,
-      (int2*)work + 1);
-  return (int)cudaGetLastError();
+  return launch<false>(wide, tris, o, d, t_max, t_out, prim_out, b1_out,
+                       b2_out, n, any_hit, work, stream, nullptr, 0, 0);
+}
+
+// The motion variant: tris_steps (n_steps, n_tris, 12), time (n,) in
+// [0, 1]; the workspace as above, sized by
+// bvh_traverse_motion_spill_entries.
+extern "C" int bvh_traverse_motion(const void* wide, const void* tris_steps,
+                                   const void* o, const void* d,
+                                   const void* t_max, const void* time,
+                                   void* t_out, void* prim_out, void* b1_out,
+                                   void* b2_out, int n, int any_hit,
+                                   int n_steps, int n_tris, void* work,
+                                   void* stream) {
+  return launch<true>(wide, tris_steps, o, d, t_max, t_out, prim_out, b1_out,
+                      b2_out, n, any_hit, work, stream, time, n_steps,
+                      n_tris);
 }

@@ -356,7 +356,8 @@ def render_iile(sd, weights: str = None, net=None, seed: int = 0,
         net = weightlib.iisptnet_from_flax(net).to(device)
     else:
         net = net.eval().to(device)
-    scene, cam = renderlib.build(sd, device, with_clusters=accel == "clusters")
+    scene, cam = renderlib.build(sd, device, with_clusters=accel == "clusters",
+                                 with_kdtree=accel == "kdtree")
     W, H = sd.film.x_resolution, sd.film.y_resolution
     key = threefry.prng_key(seed)
 

@@ -30,8 +30,13 @@ MIS-selected axis to the exit point, the cosine exit lobe and NEE at the
 exit), and the hair fiber lobe.  Every draw is keyed as the reference
 keys it, so a render is the reference's estimator realisation.
 
-Not ported: explicit primary samples (``u_prim``), time (motion blur)
-and the differentiable mode.
+Object motion blur: a per-ray ``time`` (constant along a path) goes to
+every traversal and interaction of the path (closest hit, NEE shadows,
+the BSSRDF probe and its exit shadow), and rides the compacted loop's
+sort with the rest of the state.
+
+Not ported: explicit primary samples (``u_prim``) and the differentiable
+mode.
 """
 
 from __future__ import annotations
@@ -116,21 +121,24 @@ def _initial_state(scene, o0, d0, beta0):
 
 
 def trace_paths(scene, o0, d0, key, cfg: PathConfig, beta0=None,
-                sample_ctx=None, collect_aux: bool = False):
+                sample_ctx=None, collect_aux: bool = False, time=None):
     """Trace N paths -> (radiance (N,3), aux dict with "rays", and with
     collect_aux the primary hit's "distance" (N,) (-1 on a miss) and
-    geometric "normal" (N,3))."""
+    geometric "normal" (N,3)).  beta0: (N,3) initial throughput (the
+    realistic camera's weights); time: (N,) shutter times in [0, 1] of a
+    scene with object motion."""
     N = o0.shape[0]
     if beta0 is None:
         beta0 = torch.ones((N, 3), dtype=torch.float32, device=o0.device)
     if cfg.compact_schedule and cfg.max_depth > 0:
         return _trace_paths_compact(scene, o0, d0, key, cfg, beta0, sample_ctx,
-                                    collect_aux)
+                                    collect_aux, time)
     st = _initial_state(scene, o0, d0, beta0)
     aux = {}
     for b in range(cfg.max_depth + 1):
         st = statslib.timed(f"path/bounce[{b}]", _bounce, scene, st, b, key,
-                            cfg, sample_ctx, collect_aux=collect_aux and b == 0)
+                            cfg, sample_ctx, collect_aux=collect_aux and b == 0,
+                            time=time)
         if collect_aux and b == 0:
             aux = dict(distance=st.aux_t, normal=st.aux_n)
     L = torch.where(torch.isfinite(st.L), st.L, torch.zeros_like(st.L))
@@ -138,12 +146,13 @@ def trace_paths(scene, o0, d0, key, cfg: PathConfig, beta0=None,
 
 
 def _trace_paths_compact(scene, o0, d0, key, cfg: PathConfig, beta0,
-                         sample_ctx, collect_aux: bool = False):
+                         sample_ctx, collect_aux: bool = False, time=None):
     """Compacted-wavefront loop: per bounce, budget RR with keep
     probability p = min(1, .92 B / live) and 1/p reweighting, then one
-    stable coherence sort of the whole state with dead lanes last, sliced
-    to the bounce's budget B.  Radiance is flushed to the original lane
-    at every compaction, and the bounce runs presorted."""
+    stable coherence sort of the whole state (the rays' times with it)
+    with dead lanes last, sliced to the bounce's budget B.  Radiance is
+    flushed to the original lane at every compaction, and the bounce runs
+    presorted."""
     N = o0.shape[0]
     dev = o0.device
     sched = cfg.compact_schedule
@@ -156,8 +165,9 @@ def _trace_paths_compact(scene, o0, d0, key, cfg: PathConfig, beta0,
     dropped = torch.zeros((), dtype=torch.int64, device=dev)
     st = _initial_state(scene, o0, d0, beta0)
     ctx = sample_ctx
+    tm = time
 
-    def resort(st, pix, ctx, dropped, B, bounce):
+    def resort(st, pix, ctx, tm, dropped, B, bounce):
         alive, beta = st.alive, st.beta
         Ncur = st.o.shape[0]
         if B < Ncur:
@@ -183,15 +193,15 @@ def _trace_paths_compact(scene, o0, d0, key, cfg: PathConfig, beta0,
             med=st.med[perm], ray_count=st.ray_count)
         if ctx is not None:
             ctx = ctx.with_pixel(ctx.pixel[perm])
-        return st, pix[perm], ctx, dropped
+        return st, pix[perm], ctx, None if tm is None else tm[perm], dropped
 
     # presort the primary wave too: every traversal of the pass is presorted
-    st, pix, ctx, dropped = resort(st, pix, ctx, dropped, N, 0)
+    st, pix, ctx, tm, dropped = resort(st, pix, ctx, tm, dropped, N, 0)
     aux = {}
     for b in range(cfg.max_depth + 1):
         st = statslib.timed(f"path/bounce[{b}]", _bounce, scene, st, b, key,
                             cfg, ctx, presorted=True,
-                            collect_aux=collect_aux and b == 0)
+                            collect_aux=collect_aux and b == 0, time=tm)
         if collect_aux and b == 0:
             # the probe G-buffer back in lane order (the lanes are sorted)
             dist = torch.full((N,), -1.0, dtype=torch.float32, device=dev)
@@ -203,7 +213,8 @@ def _trace_paths_compact(scene, o0, d0, key, cfg: PathConfig, beta0,
                                            torch.zeros_like(st.L)))
         if b == cfg.max_depth:
             break
-        st, pix, ctx, dropped = resort(st, pix, ctx, dropped, sizes[b + 1], b)
+        st, pix, ctx, tm, dropped = resort(st, pix, ctx, tm, dropped,
+                                           sizes[b + 1], b)
     out = torch.where(torch.isfinite(out), out, torch.zeros_like(out))
     return out, dict(aux, rays=st.ray_count, compact_overflow=dropped)
 
@@ -377,7 +388,7 @@ def _ratio_track(scene, key, bounce, medc, need, dist, o, d, sig_t0, steps):
 
 def _bounce(scene, st: PathState, bounce: int, key, cfg: PathConfig,
             sample_ctx=None, presorted: bool = False,
-            collect_aux: bool = False) -> PathState:
+            collect_aux: bool = False, time=None) -> PathState:
     """One wavefront bounce: intersect -> medium event -> Le -> NEE ->
     BSDF, phase or BSSRDF continuation -> Russian roulette."""
     o, d, beta, L = st.o, st.d, st.beta, st.L
@@ -391,10 +402,10 @@ def _bounce(scene, st: PathState, bounce: int, key, cfg: PathConfig,
                                  device=dev)
 
     trav = dict(accel=cfg.accel, cluster_maxc=cfg.cluster_maxc,
-                presorted=presorted)
+                presorted=presorted, time=time)
     t_max = torch.where(alive, 1e30, -1.0)
     hit = isect.intersect(scene, o, d, t_max, **trav)
-    it = isect.make_interaction(scene, o, d, hit)
+    it = isect.make_interaction(scene, o, d, hit, time=time)
     ray_count = st.ray_count + alive.sum()
     found = hit.valid & alive
 
@@ -740,8 +751,8 @@ def _bssrdf(scene, cfg, trav, draw, it, params, sss, beta_pre, u_lobe, wo_l,
     do_probe = sss & ~go_reflect & r_ok
     probe_tmax = torch.where(do_probe, 2.0 * half_l, -1.0)
     ph = isect.intersect(scene, base, p_dir, probe_tmax, accel=cfg.accel,
-                         cluster_maxc=cfg.cluster_maxc)
-    pit = isect.make_interaction(scene, base, p_dir, ph)
+                         cluster_maxc=cfg.cluster_maxc, time=trav["time"])
+    pit = isect.make_interaction(scene, base, p_dir, ph, time=trav["time"])
     ray_count = ray_count + do_probe.sum()
     same = ph.valid & (pit.mat == it.mat)
     diffv = pit.p - it.p
@@ -806,7 +817,7 @@ def _bssrdf(scene, cfg, trav, draw, it, params, sss, beta_pre, u_lobe, wo_l,
     shx_tmax = torch.where(
         can_x, (lsx.dist - vm.dot(o_shx - pit.p, lsx.wi)) * 0.999, -1.0)
     occ_x = isect.occluded(scene, o_shx, lsx.wi, shx_tmax, accel=cfg.accel,
-                           cluster_maxc=cfg.cluster_maxc)
+                           cluster_maxc=cfg.cluster_maxc, time=trav["time"])
     ray_count = ray_count + can_x.sum()
     w_mis_x = torch.where(lsx.is_delta, 1.0,
                           smp.power_heuristic(1.0, lsx.pdf * selp_x, 1.0,

@@ -1,7 +1,10 @@
 """Render driver: scene file -> device scene -> passes -> film (port of
 ``integrators/render.py``: the ``path``, ``volpath``, ``directlighting``,
 ``whitted`` and ``ambientocclusion`` integrators; ``iispt`` renders
-through ``integrators/iispt.py``).
+through ``integrators/iispt.py``), with every camera (the realistic lens
+camera weights its rays), camera and object motion blur (a shutter time
+per pixel sample) and the three accels (``clusters``, ``bvh``,
+``kdtree``).
 
 Each pass is one wavefront of 1 spp over the image (or over row chunks
 when the image exceeds ``max_wave`` rays); passes loop on the host and
@@ -33,12 +36,16 @@ COMPACT_SCHEDULE = (1.0, 1.0, 0.5, 0.25, 0.25, 0.125)
 
 def resolve_accel(sd, accel: str = None, device="cuda") -> str:
     """accel None = auto: the scene file's choice, else the fused cluster
-    kernel on CUDA and the BVH kernel's plain walker on CPU."""
+    kernel on CUDA and the BVH kernel's plain walker on CPU.  A scene with
+    object motion renders ``clusters`` on the BVH (its motion variant
+    carries every traversal whatever the accel)."""
     if accel is None:
         accel = sd.accelerator if sd.accelerator in ("kdtree", "clusters") \
             else ("clusters" if torch.device(device).type == "cuda" else "bvh")
-    if accel not in ("bvh", "clusters"):
-        raise NotImplementedError(f"accel {accel!r} is not ported yet")
+    if accel not in ("bvh", "clusters", "kdtree"):
+        raise ValueError(f"unknown accel {accel!r}")
+    if accel == "clusters" and sd.has_motion:
+        accel = "bvh"
     return accel
 
 
@@ -79,21 +86,32 @@ def make_integrator_config(sd, accel: str = None, device="cuda"):
         f"integrator {kind!r} is not ported yet (ROADMAP Queue 1 item 9)")
 
 
-def build(sd, device, with_clusters: bool = None):
-    scene = devlib.build_device_scene(sd, device, with_clusters=with_clusters)
+def build(sd, device, with_clusters: bool = None, with_kdtree: bool = None):
+    """The device scene and the camera.  with_kdtree None builds the
+    kd-tree when the scene file asks for it; render() builds it whenever
+    the resolved accel is ``kdtree`` (a scene built without it refuses
+    that accel: the reference renders it black)."""
+    scene = devlib.build_device_scene(sd, device, with_clusters=with_clusters,
+                                      with_kdtree=with_kdtree)
     cam = camlib.make_camera(sd.camera, sd.film, device)
     return scene, cam
 
 
 def make_wave_prep(sd, device, chunk_rows: int = 0):
-    """Camera-wave generator f(cam, key, pass_idx, row0) -> (o, d,
-    jitter, k, ctx) for rows [row0, row0 + CH)."""
+    """Camera-wave generator f(cam, key, pass_idx, row0) -> (o, d, w,
+    jitter, k, ctx, ray_time) for rows [row0, row0 + CH): w is the
+    realistic camera's ray weight (None for the other cameras), ray_time
+    each ray's shutter time mapped to [0, 1] for object motion (None in a
+    static scene)."""
     device = torch.device(device)
     H, W = sd.film.y_resolution, sd.film.x_resolution
     cam_kind = camlib.KIND.get(sd.camera.kind, 0)
+    is_realistic = cam_kind == 3 and bool(sd.camera.lens_file)
     if cam_kind == 3 and not sd.camera.lens_file:
         cam_kind = 0  # realistic without a lens file: perspective
-    has_lens = sd.camera.lens_radius > 0.0
+    has_lens = sd.camera.lens_radius > 0.0 or is_realistic
+    is_animated = sd.camera.cam_to_world_end is not None
+    has_motion = sd.has_motion
     CH = chunk_rows if chunk_rows > 0 else H
 
     def prep(cam, key, pass_idx: int, row0: int):
@@ -110,16 +128,23 @@ def make_wave_prep(sd, device, chunk_rows: int = 0):
         jitter = smplr.pixel_samples(sd.sampler.kind, kj, flat_pix, pass_idx,
                                      sd.sampler.pixel_samples)
         p_film = pix + jitter
-        u_lens = None
+        u_lens = ray_time = w = None
         if has_lens:
             u_lens = smplr.uniform(smplr.wave_key(k, 0, 0, smplr.DIM_LENS),
                                    (CH * W, 2), device)
-        o, d = camlib.generate_rays(cam, p_film, u_lens, kind=cam_kind)
+        if is_animated or has_motion:
+            ray_time = camlib.shutter_time(sd.camera, smplr.uniform(
+                smplr.wave_key(k, 0, 0, smplr.DIM_TIME), (CH * W,), device))
+        if is_realistic:
+            o, d, w = camlib.realistic_generate_rays(cam, p_film, u_lens)
+        else:
+            o, d = camlib.generate_rays(cam, p_film, u_lens, kind=cam_kind,
+                                        time=ray_time if is_animated else None)
         ctx = None
         if sd.sampler.kind in smplr.LD_KINDS:
             ctx = smplr.make_sample_ctx(key, flat_pix, pass_idx,
                                         kind=sd.sampler.kind)
-        return o, d, jitter, k, ctx
+        return o, d, w, jitter, k, ctx, ray_time if has_motion else None
 
     return prep
 
@@ -132,13 +157,17 @@ def render_pass_fn(sd, cfg, device, chunk_rows: int = 0):
     prep = make_wave_prep(sd, device, chunk_rows)
 
     def run(scene, cam, key, pass_idx: int, row0: int = 0):
-        o, d, jitter, k, ctx = prep(cam, key, pass_idx, row0)
+        o, d, w, jitter, k, ctx, rtime = prep(cam, key, pass_idx, row0)
         if sd.integrator.kind == "ambientocclusion":
             L = aolib.trace_ao(scene, o, d, k, accel=cfg.accel,
                                cos_sample=sd.integrator.cos_sample)
+            if w is not None:
+                L = L * w[:, None]
             aux = {"rays": torch.tensor(2 * CH * W, device=o.device)}
         else:
-            L, aux = pathlib_.trace_paths(scene, o, d, k, cfg, sample_ctx=ctx)
+            beta0 = None if w is None else w[:, None].expand(-1, 3).contiguous()
+            L, aux = pathlib_.trace_paths(scene, o, d, k, cfg, beta0=beta0,
+                                          sample_ctx=ctx, time=rtime)
         return L.reshape(CH, W, 3), jitter.reshape(CH, W, 2), aux
 
     return run
@@ -162,21 +191,34 @@ def load_film_checkpoint(path: str, device="cuda"):
 def render(sd, spp: int = None, seed: int = 0, max_wave: int = 1 << 16,
            accel: str = None, compact: bool = False, device="cuda",
            cluster_maxc: int = None, checkpoint: str = None,
-           checkpoint_every: int = 0, report=None):
+           checkpoint_every: int = 0, report=None, prebuilt=None):
     """Full render -> (image (H,W,3) np.ndarray, stats dict).
 
     compact: the compacted-wavefront loop with the bench schedule
     (1, 1, .5, .25, .25, .125).  Waves are cut to about max_wave rays.
     checkpoint: a film checkpoint file, resumed from when it exists (its
     seed must be this render's) and written every checkpoint_every
-    passes.  report(passes_done, spp, film) is called after each pass."""
+    passes.  report(passes_done, spp, film) is called after each pass.
+    prebuilt: (scene, cam) of ``build(sd, device, ...)`` with what the
+    resolved accel needs (the cluster pack, the kd-tree), to render
+    without building them again; a scene without it raises."""
     device = torch.device(device)
     cfg = make_integrator_config(sd, accel=accel, device=device)
     if compact:
         cfg = cfg.replace(compact_schedule=COMPACT_SCHEDULE)
     if cluster_maxc is not None:
         cfg = cfg.replace(cluster_maxc=cluster_maxc)
-    scene, cam = build(sd, device, with_clusters=cfg.accel == "clusters")
+    if prebuilt is None:
+        scene, cam = build(sd, device, with_clusters=cfg.accel == "clusters",
+                           with_kdtree=cfg.accel == "kdtree")
+    else:
+        scene, cam = prebuilt
+        if cfg.accel == "clusters" and scene.clusters is None:
+            raise ValueError("accel 'clusters': the prebuilt scene has no "
+                             "cluster pack (build(..., with_clusters=True))")
+        if cfg.accel == "kdtree" and not scene.has_kdtree:
+            raise ValueError("accel 'kdtree': the prebuilt scene has no "
+                             "kd-tree (build(..., with_kdtree=True))")
     H, W = sd.film.y_resolution, sd.film.x_resolution
     spp = spp if spp is not None else sd.sampler.pixel_samples
     chunk_rows = 0

@@ -1,11 +1,13 @@
 """Ray-scene intersection front end (port of ``ops/intersect.py``).
 
 ``intersect``/``occluded`` dispatch to the aggregate: the fused cluster
-kernel (``clusters_kernel``, K1) or the BVH kernel (``intersect_kernel``,
-K2), then merge the analytic spheres.  On CPU tensors both kernels run
-their plain PyTorch versions; the plain version of K2 is the vectorized
-BVH walker below (``intersect_bvh``), the torch form of the reference's
-``lax.while_loop`` walker with the same per-step semantics.
+kernel (``clusters_kernel``, K1), the BVH kernel (``intersect_kernel``,
+K2; with per-ray times its motion variant) or the kd-tree kernel
+(``kd_kernel``, K3), then merge the analytic spheres.  On CPU tensors
+each kernel runs its plain PyTorch version; the plain version of K2 is
+the vectorized BVH walker below (``intersect_bvh``), the torch form of
+the reference's ``lax.while_loop`` walker with the same per-step
+semantics, its keyframe lerp included.
 """
 
 from __future__ import annotations
@@ -69,8 +71,27 @@ def _moller_raw(o, d, p0, e1, e2):
     return valid, t, u, v
 
 
+def motion_segment(time, n_steps: int):
+    """The keyframe segment of each ray's time in [0, 1] and the lerp
+    parameter within it: tf = time (M - 1), seg = clip(int(tf), 0, M - 2),
+    tl = tf - seg, as the reference computes them."""
+    tf = time * (n_steps - 1)
+    seg = torch.clamp(tf.to(torch.int32), 0, n_steps - 2)
+    return seg.long(), tf - seg.to(torch.float32)
+
+
+def lerp_steps(steps, seg, tl, pid):
+    """Rows seg * T + pid and (seg + 1) * T + pid of the (M, T, ...) step
+    stack, lerped at tl: r0 + tl (r1 - r0)."""
+    T = steps.shape[1]
+    flat = steps.reshape((-1,) + tuple(steps.shape[2:]))
+    r0 = flat[seg * T + pid]
+    r1 = flat[(seg + 1) * T + pid]
+    return r0 + tl.reshape((-1,) + (1,) * (r0.dim() - 1)) * (r1 - r0)
+
+
 def intersect_bvh(scene, o, d, t_max, any_hit: bool = False,
-                  work: dict = None) -> Hit:
+                  work: dict = None, time=None) -> Hit:
     """Closest-hit (or any-hit) against the triangle BVH: the plain
     PyTorch version of the BVH kernel.
 
@@ -78,7 +99,10 @@ def intersect_bvh(scene, o, d, t_max, any_hit: bool = False,
     gathered, so the cost follows the live count (the per-ray results are
     those of the reference walker, which steps every ray each iteration).
     work: a dict to which the node visits ("nodes") and triangle tests
-    ("tris") of these rays are added (one host sync per step)."""
+    ("tris") of these rays are added (one host sync per step).
+    time: optional (N,) in [0, 1], object motion blur: each leaf triangle
+    is lerped between the sub-keyframes of ``tris_steps_packed`` around
+    the ray's time (the BVH's boxes cover the whole shutter)."""
     N = o.shape[0]
     dev = o.device
     inv_d = torch.where(torch.abs(d) > 1e-12,
@@ -93,6 +117,9 @@ def intersect_bvh(scene, o, d, t_max, any_hit: bool = False,
     b2 = torch.zeros(N, dtype=torch.float32, device=dev)
     nodes = scene.nodes_packed
     tris = scene.tris_packed
+    if time is not None:
+        seg_all, tl_all = motion_segment(time, scene.tris_steps_packed.shape[0])
+    kk = torch.arange(MAX_LEAF, device=dev)
     idx = torch.arange(N, device=dev)
     while idx.numel() > 0:
         if work is not None:
@@ -114,20 +141,34 @@ def intersect_bvh(scene, o, d, t_max, any_hit: bool = False,
         tfar = torch.amin(torch.maximum(tlo, thi), dim=-1) * 1.0000004
         box_hit = (tnear <= tfar) & (tnear < tt) & (tfar > 0.0)
         leaf_hit = box_hit & (ncount > 0)
-        for k in range(MAX_LEAF):
-            m = leaf_hit & (k < ncount)
-            if not bool(m.any()):
-                break
+        if bool(leaf_hit.any()):
+            # the leaf's triangles tested at once: the first of the least t
+            # below the ray's t is the sequential tests' result (each test
+            # needs t' < the t the earlier ones left)
+            m = leaf_hit[:, None] & (kk[None, :] < ncount[:, None])
             if work is not None:
                 work["tris"] = work.get("tris", 0) + int(m.sum())
-            pid = torch.clamp(nright + k, 0, tris.shape[0] - 1)  # jnp.take clamps
-            tr = tris[pid]
-            ok, tk, uk, vk = _moller(oo, dd, tr[:, 0:3], tr[:, 3:6], tr[:, 6:9], tt)
-            upd = m & ok
-            tt = torch.where(upd, tk, tt)
-            pp = torch.where(upd, nright + k, pp)
-            bb1 = torch.where(upd, uk, bb1)
-            bb2 = torch.where(upd, vk, bb2)
+            pid = torch.clamp(nright[:, None] + kk, 0, tris.shape[0] - 1)  # jnp.take clamps
+            if time is None:
+                tr = tris[pid].reshape(-1, 12)
+            else:
+                tr = lerp_steps(scene.tris_steps_packed,
+                                seg_all[idx].repeat_interleave(MAX_LEAF),
+                                tl_all[idx].repeat_interleave(MAX_LEAF),
+                                pid.reshape(-1))
+            ok, tk, uk, vk = (x.reshape(-1, MAX_LEAF) for x in _moller_raw(
+                oo.repeat_interleave(MAX_LEAF, 0), dd.repeat_interleave(MAX_LEAF, 0),
+                tr[:, 0:3], tr[:, 3:6], tr[:, 6:9]))
+            ok = ok & m & (tk < tt[:, None])
+            tk = torch.where(ok, tk, math.inf)
+            t_best = tk.min(1).values
+            j = torch.where(ok & (tk == t_best[:, None]), kk, MAX_LEAF).min(1).values
+            upd = ok.any(1)
+            jj = torch.clamp(j, max=MAX_LEAF - 1)[:, None]
+            tt = torch.where(upd, t_best, tt)
+            pp = torch.where(upd, nright + j, pp)
+            bb1 = torch.where(upd, uk.gather(1, jj)[:, 0], bb1)
+            bb2 = torch.where(upd, vk.gather(1, jj)[:, 0], bb2)
         go_in = box_hit & (ncount == 0)
         neg = torch.gather(dd < 0.0, 1, naxis[:, None])[:, 0]
         first = nid + 1
@@ -186,16 +227,22 @@ def intersect_spheres(scene, o, d, hit: Hit) -> Hit:
 
 
 def intersect(scene, o, d, t_max, any_hit: bool = False, accel: str = "bvh",
-              cluster_maxc: int = 192, presorted: bool = False) -> Hit:
+              cluster_maxc: int = 192, presorted: bool = False,
+              time=None) -> Hit:
     """Full scene intersection: the triangle aggregate, then the analytic
     spheres (when the scene has any).
 
-    accel "clusters" (with a cluster pack on the scene) runs the fused
-    cluster kernel with the BVH kernel as its overflow fallback; "bvh"
-    runs the BVH kernel.  On CPU tensors each runs its plain version."""
-    from . import clusters_kernel, intersect_kernel
+    time (per-ray, object motion blur) runs the BVH kernel's motion
+    variant, whatever the accel; else accel "clusters" (with a cluster
+    pack on the scene) runs the fused cluster kernel with the BVH kernel
+    as its overflow fallback, "bvh" the BVH kernel and "kdtree" the
+    kd-tree kernel.  On CPU tensors each runs its plain version."""
+    from . import clusters_kernel, intersect_kernel, kd_kernel
 
-    if accel == "clusters" and scene.clusters is not None:
+    if time is not None:
+        hit = intersect_kernel.intersect_bvh_kernel(scene, o, d, t_max,
+                                                    any_hit=any_hit, time=time)
+    elif accel == "clusters" and scene.clusters is not None:
         hit = clusters_kernel.intersect_clusters_fused(
             scene.clusters, o, d, t_max, any_hit=any_hit,
             fallback=lambda os_, ds_, ts_: intersect_kernel.intersect_bvh_kernel(
@@ -207,16 +254,19 @@ def intersect(scene, o, d, t_max, any_hit: bool = False, accel: str = "bvh",
     elif accel in ("bvh", "clusters"):
         hit = intersect_kernel.intersect_bvh_kernel(scene, o, d, t_max,
                                                     any_hit=any_hit)
+    elif accel == "kdtree":
+        hit = kd_kernel.intersect_kd_kernel(scene, o, d, t_max, any_hit=any_hit)
     else:
-        raise NotImplementedError(f"accel {accel!r} is not ported yet")
+        raise ValueError(f"unknown accel {accel!r}")
     return intersect_spheres(scene, o, d, hit) if scene.n_spheres > 0 else hit
 
 
 def occluded(scene, o, d, t_max, accel: str = "bvh", cluster_maxc: int = 192,
-             presorted: bool = False):
+             presorted: bool = False, time=None):
     """Shadow-ray IntersectP."""
     return intersect(scene, o, d, t_max, any_hit=True, accel=accel,
-                     cluster_maxc=cluster_maxc, presorted=presorted).valid
+                     cluster_maxc=cluster_maxc, presorted=presorted,
+                     time=time).valid
 
 
 @dataclass
@@ -233,14 +283,22 @@ class Interaction:
     face: torch.Tensor   # (N,) i32 ptex face index (0 on spheres)
 
 
-def make_interaction(scene, o, d, hit: Hit) -> Interaction:
+def make_interaction(scene, o, d, hit: Hit, time=None) -> Interaction:
+    """time: per-ray times of a motion-blurred scene: the geometric and
+    shading normals are lerped over the sub-keyframes as the vertices are
+    (the geometric one renormalized)."""
     T = scene.tri_p0.shape[0]
     is_sph = hit.prim >= T
     tri_id = torch.clamp(hit.prim, 0, T - 1).long()
     sph_id = torch.clamp(hit.prim - T, 0, scene.sph_center.shape[0] - 1).long()
     p = o + hit.t[:, None] * d
-    ng_t = scene.tri_ng[tri_id]
-    ns_tri = scene.tri_ns[tri_id]
+    if time is None:
+        ng_t = scene.tri_ng[tri_id]
+        ns_tri = scene.tri_ns[tri_id]
+    else:
+        seg, tl = motion_segment(time, scene.tri_ng_steps.shape[0])
+        ng_t = vm.normalize(lerp_steps(scene.tri_ng_steps, seg, tl, tri_id))
+        ns_tri = lerp_steps(scene.tri_ns_steps, seg, tl, tri_id)
     b0 = 1.0 - hit.b1 - hit.b2
     ns_t = (b0[:, None] * ns_tri[:, 0] + hit.b1[:, None] * ns_tri[:, 1]
             + hit.b2[:, None] * ns_tri[:, 2])

@@ -26,7 +26,11 @@ the visiting order).  Any-hit stops after the first step that finds a hit,
 with the least (t, prim) of that step's triangles.
 
 It serves the ``bvh`` accel and the overflow groups of the fused cluster
-kernel.
+kernel.  Its motion variant (a compile-time flag of the same kernel) takes
+per-ray times and lerps each tested triangle between the two
+sub-keyframes of ``tris_steps_packed`` around the ray's time, as the
+reference's walker does (``pbrt_v3_iile_tpu/ops/intersect.py:111-124``):
+it carries every traversal of a motion-blurred scene.
 """
 
 from __future__ import annotations
@@ -38,15 +42,17 @@ import math
 import numpy as np
 import torch
 
-from .intersect import MAX_LEAF, Hit, _moller_raw, intersect_bvh
+from .intersect import (MAX_LEAF, Hit, _moller_raw, intersect_bvh,
+                        lerp_steps, motion_segment)
 
 WIDTH = 4         # children per wide node (kWidth of csrc/bvh_traverse.cu)
 NODE_INTS = 8 * WIDTH  # one wide node: 32 * WIDTH bytes (see build_bvh4_np)
 STACK_MAX = 64    # deepest stack a build may need (the plain version's
                   # stack; the kernel's spill region is sized per scene)
 
-LAUNCHES = 0  # kernel launches (not plain-version calls) since import
-_SPILL = {}   # (device, stack depth) -> the kernel's spill entries
+LAUNCHES = 0         # kernel launches (not plain-version calls) since import
+LAUNCHES_MOTION = 0  # ... of the motion variant
+_SPILL = {}   # (device, stack depth, motion) -> the kernel's spill entries
 _WORK = {}    # (device, stream) -> workspace: ray counter, block counter,
               # then the stack spill (int2 entries)
 
@@ -137,12 +143,15 @@ def build_bvh4_np(nodes_packed, width: int = WIDTH):
 
 
 def bvh_traverse_wide_plain(bvh4_nodes, tris_packed, o, d, t_max,
-                            any_hit: bool = False, work: dict = None):
+                            any_hit: bool = False, work: dict = None,
+                            time=None, tris_steps=None):
     """The kernel's plain version: every live ray steps one wide node an
     iteration, in the kernel's order (module docstring), with the same
     rounded operations.  Returns (t, prim i32, b1, b2) as the kernel.
     work: a dict to which the wide-node visits ("nodes"), the triangle
-    tests ("tris") and the deepest stack seen ("stack") are added."""
+    tests ("tris") and the deepest stack seen ("stack") are added.
+    time, tris_steps: the motion variant's per-ray times (N,) and the
+    (M, T, 12) sub-keyframes its triangles are lerped between."""
     N = o.shape[0]
     dev = o.device
     W = bvh4_nodes.shape[1] // 8  # the nodes' width
@@ -159,6 +168,8 @@ def bvh_traverse_wide_plain(bvh4_nodes, tris_packed, o, d, t_max,
     sp = torch.zeros(N, dtype=torch.int64, device=dev)
     slot = torch.arange(W, device=dev)
     tri_j = torch.arange(MAX_LEAF, device=dev)  # a leaf's triangles
+    if time is not None:
+        seg_all, tl_all = motion_segment(time, tris_steps.shape[0])
     # a ray with t_max <= 0 can hit nothing (0 < t < t_max): it stays a miss
     idx = torch.nonzero(t_max > 0)[:, 0]
     while idx.numel() > 0:
@@ -183,7 +194,13 @@ def bvh_traverse_wide_plain(bvh4_nodes, tris_packed, o, d, t_max,
         if work is not None:
             work["tris"] = work.get("tris", 0) + int(m.sum())
         pid = torch.where(m, (first[:, :, None] + tri_j).reshape(n, -1), 0)
-        tr = tris_packed[pid].reshape(-1, 12)
+        if time is None:
+            tr = tris_packed[pid].reshape(-1, 12)
+        else:
+            rep_ = pid.shape[1]
+            tr = lerp_steps(tris_steps, seg_all[idx].repeat_interleave(rep_),
+                            tl_all[idx].repeat_interleave(rep_),
+                            pid.reshape(-1))
         oo_, dd_ = (x.repeat_interleave(pid.shape[1], 0) for x in (oo, dd))
         ok, tk, uk, vk = (x.reshape(n, -1) for x in _moller_raw(
             oo_, dd_, tr[:, 0:3], tr[:, 3:6], tr[:, 6:9]))
@@ -251,19 +268,27 @@ def _lib():
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int]
                    + [ctypes.c_void_p] * 2)
-    lib.bvh_traverse_spill_entries.restype = ctypes.c_int
-    lib.bvh_traverse_spill_entries.argtypes = [ctypes.c_int]
+    fn = lib.bvh_traverse_motion
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 2)
+    for name in ("bvh_traverse_spill_entries",
+                 "bvh_traverse_motion_spill_entries"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = [ctypes.c_int]
     return lib
 
 
-def _workspace(lib, dev, stack_depth: int, stream: int):
+def _workspace(lib, dev, stack_depth: int, stream: int, motion: bool):
     """The kernel's workspace on `stream`, kept across launches: two
     counters (zeroed here once; the kernel's last block sets them back to
-    0) and the stack spill for stacks of `stack_depth` entries."""
-    key = (dev.index, stack_depth)
+    0) and the stack spill for stacks of `stack_depth` entries (sized for
+    the larger of the two variants' persistent grids it has served)."""
+    key = (dev.index, stack_depth, motion)
     entries = _SPILL.get(key)
     if entries is None:
-        entries = lib.bvh_traverse_spill_entries(stack_depth)
+        entries = (lib.bvh_traverse_motion_spill_entries if motion
+                   else lib.bvh_traverse_spill_entries)(stack_depth)
         if entries < 0:
             raise RuntimeError("bvh_traverse: occupancy query failed: "
                                f"cudaError {-entries}")
@@ -276,26 +301,43 @@ def _workspace(lib, dev, stack_depth: int, stream: int):
 
 
 def bvh_traverse_cuda(bvh4_nodes, stack_depth: int, tris_packed, o, d, t_max,
-                      any_hit: bool = False):
+                      any_hit: bool = False, time=None, tris_steps=None):
     """Launch the kernel: returns (t, prim, b1, b2) for CUDA tensors.
-    stack_depth: ``build_bvh4_np``'s bound, which sizes the stack spill."""
+    stack_depth: ``build_bvh4_np``'s bound, which sizes the stack spill.
+    time (N,) and tris_steps (M, T, 12), M >= 2: the motion variant, which
+    reads its triangles from tris_steps (tris_packed is not read)."""
     from .. import _build
 
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_MOTION
     n = o.shape[0]
     dev = o.device
-    _build.check_args(dev, (
-        ("bvh4_nodes", bvh4_nodes, torch.int32, (bvh4_nodes.shape[0], NODE_INTS)),
-        ("tris_packed", tris_packed, torch.float32, (tris_packed.shape[0], 12)),
-        ("o", o, torch.float32, (n, 3)),
-        ("d", d, torch.float32, (n, 3)),
-        ("t_max", t_max, torch.float32, (n,))))
-    if tris_packed.shape[0] > 1 << 26:
+    motion = time is not None
+    tris = tris_steps if motion else tris_packed
+    specs = [("bvh4_nodes", bvh4_nodes, torch.int32,
+              (bvh4_nodes.shape[0], NODE_INTS)),
+             ("o", o, torch.float32, (n, 3)),
+             ("d", d, torch.float32, (n, 3)),
+             ("t_max", t_max, torch.float32, (n,))]
+    if motion:
+        specs += [("tris_steps", tris_steps, torch.float32,
+                   (tris_steps.shape[0], tris_steps.shape[1], 12)),
+                  ("time", time, torch.float32, (n,))]
+        if tris_steps.shape[0] < 2:
+            raise ValueError("the motion variant needs at least 2 keyframes")
+        if tris_steps.numel() // 4 > 1 << 31:
+            raise ValueError("the motion variant indexes the float4 rows of "
+                             "steps x triangles (3 a triangle) in 32 bits")
+    else:
+        specs.append(("tris_packed", tris_packed, torch.float32,
+                      (tris_packed.shape[0], 12)))
+    _build.check_args(dev, specs)
+    n_tris = tris.shape[-2]
+    if n_tris > 1 << 26:
         raise ValueError("the kernel lists a step's tests as (prim << 5 | "
                          "lane): at most 2**26 triangles")
     if not 0 <= stack_depth <= STACK_MAX:
         raise ValueError(f"stack_depth {stack_depth} outside [0, {STACK_MAX}]")
-    for name, x in (("bvh4_nodes", bvh4_nodes), ("tris_packed", tris_packed)):
+    for name, x in (("bvh4_nodes", bvh4_nodes), ("triangles", tris)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: the kernel reads it 16 bytes at a time "
                              "and needs a 16-byte aligned start")
@@ -308,23 +350,37 @@ def bvh_traverse_cuda(bvh4_nodes, stack_depth: int, tris_packed, o, d, t_max,
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        work = _workspace(lib, dev, stack_depth, stream)
-        err = lib.bvh_traverse(
-            bvh4_nodes.data_ptr(), tris_packed.data_ptr(),
-            o.data_ptr(), d.data_ptr(), t_max.data_ptr(), t.data_ptr(),
-            prim.data_ptr(), b1.data_ptr(), b2.data_ptr(), n, int(any_hit),
-            work.data_ptr(), stream)
+        work = _workspace(lib, dev, stack_depth, stream, motion)
+        if motion:
+            err = lib.bvh_traverse_motion(
+                bvh4_nodes.data_ptr(), tris_steps.data_ptr(), o.data_ptr(),
+                d.data_ptr(), t_max.data_ptr(), time.data_ptr(), t.data_ptr(),
+                prim.data_ptr(), b1.data_ptr(), b2.data_ptr(), n, int(any_hit),
+                tris_steps.shape[0], n_tris, work.data_ptr(), stream)
+        else:
+            err = lib.bvh_traverse(
+                bvh4_nodes.data_ptr(), tris_packed.data_ptr(),
+                o.data_ptr(), d.data_ptr(), t_max.data_ptr(), t.data_ptr(),
+                prim.data_ptr(), b1.data_ptr(), b2.data_ptr(), n, int(any_hit),
+                work.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"bvh_traverse launch failed: cudaError {err}")
-    LAUNCHES += 1
+    if motion:
+        LAUNCHES_MOTION += 1
+    else:
+        LAUNCHES += 1
     return t, prim, b1, b2
 
 
-def intersect_bvh_kernel(scene, o, d, t_max, any_hit: bool = False) -> Hit:
-    """Closest-hit (or any-hit) of each ray against the scene BVH."""
+def intersect_bvh_kernel(scene, o, d, t_max, any_hit: bool = False,
+                         time=None) -> Hit:
+    """Closest-hit (or any-hit) of each ray against the scene BVH; with
+    per-ray times (a motion-blurred scene) the motion variant."""
     if o.device.type != "cuda":
-        return intersect_bvh(scene, o, d, t_max, any_hit=any_hit)
+        return intersect_bvh(scene, o, d, t_max, any_hit=any_hit, time=time)
     t, prim, b1, b2 = bvh_traverse_cuda(
         scene.bvh4_nodes, scene.bvh4_stack, scene.tris_packed, o.contiguous(),
-        d.contiguous(), t_max.contiguous(), any_hit=any_hit)
+        d.contiguous(), t_max.contiguous(), any_hit=any_hit,
+        time=None if time is None else time.contiguous(),
+        tris_steps=None if time is None else scene.tris_steps_packed)
     return Hit(t=t, prim=prim, b1=b1, b2=b2, valid=prim >= 0)

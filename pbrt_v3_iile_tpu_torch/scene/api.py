@@ -399,7 +399,12 @@ class Api:
                                                cam.focal_distance)
         # realistic lens-system camera (ref: cameras/realistic.cpp
         # CreateRealisticCamera: lensfile/aperturediameter in mm)
-        cam.lens_file = ps.find_one_string("lensfile", "")
+        lens_file = ps.find_one_string("lensfile", "")
+        if lens_file and not os.path.isabs(lens_file):
+            # resolved against the scene file's directory, as pbrt resolves
+            # it (the JAX package keeps the name as written)
+            lens_file = os.path.join(self.base_dir, lens_file)
+        cam.lens_file = lens_file
         cam.aperture_diameter = ps.find_one_float("aperturediameter", 1.0)
         sw = ps.find_floats("screenwindow")
         if sw is not None and sw.size == 4:

@@ -13,8 +13,10 @@ materials (with the subsurface diffusion lengths and the Fourier tables,
 goniometric and projection lights with their stacked direction maps,
 triangle and sphere area lights, with the power and spatial selection
 tables), the constant and map environment, homogeneous and grid-density
-media, world bounds, and the cluster pack of the fused traversal kernel.
-Scenes with motion blur or a kd-tree raise (ROADMAP Queue 1 item 8).
+media, world bounds, the cluster pack of the fused traversal kernel, the
+kd-tree of the ``kdtree`` accel, and object motion blur: the sub-keyframes
+of animated shapes (``tris_steps_packed``, ``tri_ng_steps``,
+``tri_ns_steps``) with a BVH over the union of all of them.
 """
 
 from __future__ import annotations
@@ -26,21 +28,13 @@ import numpy as np
 from ..ops import bvh as bvhlib
 from ..ops import fourierbsdf as fourierlib
 from ..utils import log
+from ..utils import transforms as xf
 from . import api as apilib
 from . import textures as texlib
 from .state import DeviceScene, scene_from_numpy
 
 __all__ = ["DeviceScene", "build_device_scene", "build_leaves",
            "scene_from_numpy"]
-
-def _check_supported(sd):
-    if getattr(sd, "has_motion", False):
-        raise NotImplementedError("object motion blur is not ported yet "
-                                  "(ROADMAP Queue 1 item 8)")
-    if getattr(sd, "accelerator", "bvh") == "kdtree":
-        raise NotImplementedError("the kd-tree aggregate is not ported yet "
-                                  "(ROADMAP Queue 1 item 8)")
-
 
 def _smooth_from_geo(p):
     """Zero shading normals signal 'use the geometric normal'."""
@@ -60,11 +54,73 @@ def _geo_normal(pp):
     return np.where(a2 > 1e-20, ng / np.maximum(a2, 1e-20), 0.0)
 
 
-def build_leaves(sd, with_clusters: bool = False) -> dict:
+def _anim_eval(anim, t):
+    """A decomposed AnimatedTransform at time t in [0, 1] (transform.cpp
+    AnimatedTransform::Interpolate: translation and scale lerp, rotation
+    slerps) applied to its shape: (verts (cnt,3,3), shading normals
+    (cnt,3,3))."""
+    q = xf.quat_slerp(float(t), anim["q0"], anim["q1"])
+    R = xf.quat_to_matrix(q)
+    S = anim["S0"] + t * (anim["S1"] - anim["S0"])
+    T = anim["T0"] + t * (anim["T1"] - anim["T0"])
+    M3 = (R @ S).astype(np.float64)
+    pw = np.asarray(anim["p_obj"], np.float64) @ M3.T + T[None, None, :]
+    n_obj = anim.get("n_obj")
+    if n_obj is None:
+        n_obj = _smooth_from_geo(anim["p_obj"])
+    inv_t = np.linalg.inv(M3).T
+    nw = np.asarray(n_obj, np.float64) @ inv_t.T
+    nw = nw / np.maximum(np.linalg.norm(nw, axis=-1, keepdims=True), 1e-20)
+    return pw.astype(np.float32), nw.astype(np.float32)
+
+
+def _motion_steps(sd):
+    """The scene's sub-keyframe count: enough that each piecewise-linear
+    segment spans at most 15 degrees of the largest rotation, in [2, 16]."""
+    max_angle = 0.0
+    for b in sd.tri_blocks:
+        anim = b.get("anim")
+        if anim is not None:
+            c = abs(float(np.dot(anim["q0"], anim["q1"])))
+            max_angle = max(max_angle, 2.0 * np.arccos(min(c, 1.0)))
+    steps = int(np.ceil(np.degrees(max_angle) / 15.0)) + 1
+    return int(np.clip(steps, 2, 16))
+
+
+def _motion_stacks(sd, n_steps):
+    """Per block, its vertices and shading normals at each sub-keyframe
+    (n_steps, T, 3, 3): the decomposed animation evaluated, a two-keyframe
+    block lerped, a static block repeated."""
+    p_rows, ns_rows = [], []
+    for b in sd.tri_blocks:
+        anim = b.get("anim")
+        bn = b["n"] if b["n"] is not None else _smooth_from_geo(b["p"])
+        if anim is not None:
+            evs = [_anim_eval(anim, i / (n_steps - 1)) for i in range(n_steps)]
+            p_rows.append(np.stack([e[0] for e in evs]))
+            ns_rows.append(np.stack([e[1] for e in evs]))
+        elif b.get("p_end") is not None:
+            be = b["p_end"]
+            bne = b["n_end"] if b.get("n_end") is not None else bn
+            ts = np.linspace(0.0, 1.0, n_steps)[:, None, None, None]
+            p_rows.append(b["p"][None] * (1 - ts) + be[None] * ts)
+            ns_rows.append(bn[None] * (1 - ts) + bne[None] * ts)
+        else:
+            p_rows.append(np.repeat(b["p"][None], n_steps, 0))
+            ns_rows.append(np.repeat(bn[None], n_steps, 0))
+    return np.concatenate(p_rows, axis=1), np.concatenate(ns_rows, axis=1)
+
+
+def build_leaves(sd, with_clusters: bool = False, with_kdtree: bool = None
+                 ) -> dict:
     """Host build of the device scene as a dict of numpy leaves named as
     the reference's DeviceScene fields (clusters as ``clusters.*``,
-    textures as ``textures.*``)."""
-    _check_supported(sd)
+    textures as ``textures.*``).  with_kdtree None builds the kd-tree
+    when the scene file asks for it (``Accelerator "kdtree"``); else its
+    leaves are the reference's placeholder (one empty leaf)."""
+    if with_kdtree is None:
+        with_kdtree = getattr(sd, "accelerator", "bvh") == "kdtree"
+    has_motion = bool(sd.tri_blocks) and sd.has_motion
     if sd.tri_blocks:
         p = np.concatenate([b["p"] for b in sd.tri_blocks], axis=0)
         ns = np.concatenate(
@@ -91,16 +147,35 @@ def build_leaves(sd, with_clusters: bool = False) -> dict:
         m_in = np.full(1, -1, np.int32)
         m_out = np.full(1, -1, np.int32)
 
-    flat = bvhlib.build_bvh(p)
+    if has_motion:
+        # the BVH's boxes cover the whole shutter: built over the union of
+        # every sub-keyframe's vertices (the numpy builder reads only each
+        # prim's bounds and centroid, so a (T, 3 M, 3) stack is its input),
+        # with the numpy builder as the reference builds it
+        p_steps, ns_steps = _motion_stacks(sd, _motion_steps(sd))
+        flat = bvhlib.build_bvh(np.concatenate(list(p_steps), axis=1),
+                                use_native=False)
+    else:
+        flat = bvhlib.build_bvh(p)
     order = flat.prim_order
     # every per-triangle table in BVH order: the order of the prim ids
-    # that both traversal kernels return
+    # that the traversal kernels return
     p, ns, uv, mat, lig = p[order], ns[order], uv[order], mat[order], lig[order]
     face = face[order]
     m_in, m_out = m_in[order], m_out[order]
     e1 = p[:, 1] - p[:, 0]
     e2 = p[:, 2] - p[:, 0]
     ng = _geo_normal(p)
+    if has_motion:
+        p_steps, ns_steps = p_steps[:, order], ns_steps[:, order]
+        tris_steps = np.zeros(p_steps.shape[:2] + (12,), np.float32)
+        tris_steps[:, :, 0:3] = p_steps[:, :, 0]
+        tris_steps[:, :, 3:6] = p_steps[:, :, 1] - p_steps[:, :, 0]
+        tris_steps[:, :, 6:9] = p_steps[:, :, 2] - p_steps[:, :, 0]
+        ng_steps = np.stack([_geo_normal(ps) for ps in p_steps])
+    else:  # the reference's placeholders of a static scene
+        tris_steps = np.zeros((1, 1, 12), np.float32)
+        ns_steps, ng_steps = ns[None, :1], ng[None, :1]
 
     # ---- spheres (padded to >= 1) ----
     S = max(1, len(sd.spheres))
@@ -388,7 +463,14 @@ def build_leaves(sd, with_clusters: bool = False) -> dict:
         world_radius=np.float32(wradius), tri_uv_density=uv_density,
         tex_theta=np.float32(tex_theta),
         tex_cone_o=np.asarray(cam.cam_to_world[:3, 3], np.float32),
+        tris_steps_packed=tris_steps, tri_ng_steps=ng_steps,
+        tri_ns_steps=ns_steps,
     )
+    # the kd-tree over the same BVH-ordered triangles: the two aggregates
+    # share prim ids
+    from ..ops import kdtree as kdlib
+    leaves.update(kdlib.kd_leaves(p[:, 0], e1, e2) if with_kdtree
+                  else kdlib.placeholder_leaves())
     leaves.update(med)
     leaves.update({f"textures.{k}": v for k, v in tex_leaves.items()})
     if fourier_tables:
@@ -401,16 +483,19 @@ def build_leaves(sd, with_clusters: bool = False) -> dict:
     return leaves
 
 
-def build_device_scene(sd, device, with_clusters: bool = None) -> DeviceScene:
+def build_device_scene(sd, device, with_clusters: bool = None,
+                       with_kdtree: bool = None) -> DeviceScene:
     """Parse-time scene -> DeviceScene on ``device``.  with_clusters None
     builds the fused-kernel cluster pack exactly when ``device`` is CUDA
-    (the default accel there)."""
+    (the default accel there); with_kdtree None builds the kd-tree when
+    the scene file asks for it."""
     import torch
 
     device = torch.device(device)
     if with_clusters is None:
         with_clusters = device.type == "cuda"
-    leaves = build_leaves(sd, with_clusters=with_clusters)
+    leaves = build_leaves(sd, with_clusters=with_clusters,
+                          with_kdtree=with_kdtree)
     return scene_from_numpy(leaves, device)
 
 

@@ -148,6 +148,18 @@ class DeviceScene:
     tri_uv_density: torch.Tensor
     tex_theta: float
     tex_cone_o: torch.Tensor
+    # object motion blur: M sub-keyframes of every triangle (BVH order),
+    # piecewise-lerped at each ray's time; (1, 1, ...) in a static scene
+    tris_steps_packed: torch.Tensor  # (M,T,12) f32: p0, e1, e2, pad
+    tri_ng_steps: torch.Tensor       # (M,T,3)
+    tri_ns_steps: torch.Tensor       # (M,T,3,3)
+    # the kd-tree of the "kdtree" accel over the same triangles (one empty
+    # leaf when the scene was built without it)
+    kd_split: torch.Tensor    # (K,) f32
+    kd_meta: torch.Tensor     # (K,) i32: axis (3 = leaf) | count << 2
+    kd_offset: torch.Tensor   # (K,) i32: above child, or a leaf's first prim
+    kd_prims: torch.Tensor    # (P,) i32
+    kd_bounds: torch.Tensor   # (2,3) f32
     clusters: Optional[ClusterPack] = None
     fourier: Optional[FourierDev] = None   # None: no Fourier material
 
@@ -159,6 +171,8 @@ class DeviceScene:
         # ... and whether a material is hair, so that BSDF evaluation
         # skips the fiber lobe otherwise
         self.has_hair = bool((self.mat_kind == MAT_HAIR).any())
+        # ... and whether the kd-tree was built
+        self.has_kdtree = bool(self.kd_bounds.abs().sum() > 0)
 
     def leaves(self) -> dict:
         """Every leaf as numpy, under the reference's names."""

@@ -9,7 +9,11 @@ order, so they must agree exactly: every output of the BVH kernel, and
 the cluster kernel's n_cand, prim, t and any-hit validity.  The BVH kernel
 against the binary walker of the CPU path: prim ids equal on >= 99.9% of
 rays, t bit-equal where they agree, any-hit validity on >= 99.9%; the
-same on a soup with leaves of 6 and 10 triangles.  GPU
+same on a soup with leaves of 6 and 10 triangles.  The kd-tree kernel
+(K3) against intersect_kd_plain and the BVH kernel's motion variant
+against bvh_traverse_wide_plain with times: t, prim, barycentrics
+identical on a soup and on atrium (scenes/atrium_motion.pbrt for the
+motion variant; at time 0 it equals the static kernel).  GPU
 renders against the CPU render: test_golden's criterion.  The train step on
 the card against the CPU step: see its docstring.
 """
@@ -39,7 +43,7 @@ def gpu_scene():
     dev = torch.device("cuda")
     sd = apilib.load_scene(ATRIUM)
     sd.film.x_resolution = sd.film.y_resolution = 64
-    scene, cam = renderlib.build(sd, dev, with_clusters=True)
+    scene, cam = renderlib.build(sd, dev, with_clusters=True, with_kdtree=True)
     o, d, *_ = renderlib.make_wave_prep(sd, dev)(cam, threefry.prng_key(1), 0, 0)
     hit = isect.intersect_bvh(scene, o, d, torch.full_like(o[:, 0], 1e30))
     rng = np.random.default_rng(0)
@@ -335,3 +339,159 @@ def test_cuda_transport_render_matches_cpu_render(path):
     assert np.isfinite(gpu).all() and _golden_close(gpu, cpu)
     clu, _ = renderlib.render(sd, spp=2, seed=7, device="cuda", compact=True)
     assert k1.LAUNCHES > n1 and np.isfinite(clu).all() and clu.mean() > 0
+
+
+def _soup_text(rng, n=400, moving=True):
+    """A random triangle soup (tests/test_kdtree.py's kind) in which, with
+    moving, the second half turns 40 degrees and moves over the shutter."""
+    c = rng.uniform(-2, 2, (n, 1, 3))
+    v = (c + rng.uniform(-0.4, 0.4, (n, 3, 3))).reshape(2, -1)
+
+    def shape(p):
+        idx = " ".join(str(i) for i in range(p.size // 3))
+        pts = " ".join(f"{x:.6g}" for x in p)
+        return f'Shape "trianglemesh" "point P" [{pts}] "integer indices" [{idx}]'
+
+    anim = ("ActiveTransform EndTime\nRotate 40 0 1 0\nTranslate 0.3 0 0\n"
+            "ActiveTransform All\n") if moving else ""
+    return f"""TransformTimes 0 1
+LookAt 0 0 -6  0 0 0  0 1 0
+Camera "perspective" "float fov" [60]
+Film "image" "integer xresolution" [32] "integer yresolution" [32]
+WorldBegin
+Material "matte" "rgb Kd" [0.6 0.5 0.4]
+{shape(v[0])}
+AttributeBegin
+{anim}{shape(v[1])}
+AttributeEnd
+WorldEnd
+"""
+
+
+def _random_rays(rng, N, dev):
+    o = torch.as_tensor(rng.uniform(-4, 4, (N, 3)), dtype=torch.float32,
+                        device=dev)
+    d = rng.normal(size=(N, 3))
+    d = torch.as_tensor(d / np.linalg.norm(d, axis=1, keepdims=True),
+                        dtype=torch.float32, device=dev)
+    tm = torch.as_tensor(np.where(np.arange(N) % 3 == 0, 6.0, 1e30),
+                         dtype=torch.float32, device=dev)
+    return o, d, tm
+
+
+@pytest.fixture(scope="module")
+def soup_scene():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from pbrt_v3_iile_tpu_torch.integrators import render as renderlib
+    from pbrt_v3_iile_tpu_torch.scene import api as apilib
+
+    rng = np.random.default_rng(21)
+    sd = apilib.load_scene_string(_soup_text(rng))
+    assert sd.has_motion
+    scene, _ = renderlib.build(sd, torch.device("cuda"), with_kdtree=True)
+    assert scene.tris_steps_packed.shape[0] == 4
+    return scene, _random_rays(rng, 8192, torch.device("cuda"))
+
+
+def _kd_check(scene, o, d, tm, any_hit):
+    from pbrt_v3_iile_tpu_torch.ops import kd_kernel as k3
+    from pbrt_v3_iile_tpu_torch.ops import kdtree
+
+    n0 = k3.LAUNCHES
+    got = k3.kd_traverse_cuda(scene, o, d, tm, any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert k3.LAUNCHES == n0 + 1
+    want = kdtree.intersect_kd_plain(scene, o, d, tm, any_hit=any_hit)
+    for a, b in zip(got, (want.t, want.prim, want.b1, want.b2)):
+        assert torch.equal(a, b)
+    assert (got[1] >= 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_kd_kernel_matches_plain_on_soup(soup_scene, any_hit):
+    """K3 against intersect_kd_plain: t, prim and barycentrics identical."""
+    scene, (o, d, tm) = soup_scene
+    _kd_check(scene, o, d, tm, any_hit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wave", ["primary", "bounce"])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_kd_kernel_matches_plain_on_atrium(gpu_scene, wave, any_hit):
+    scene, _, waves = gpu_scene
+    _kd_check(scene, *waves[wave], any_hit)
+
+
+def _motion_check(scene, o, d, tm, time, any_hit):
+    from pbrt_v3_iile_tpu_torch.ops import intersect_kernel as k2
+
+    n0 = k2.LAUNCHES_MOTION
+    got = k2.bvh_traverse_cuda(scene.bvh4_nodes, scene.bvh4_stack,
+                               scene.tris_packed, o, d, tm, any_hit=any_hit,
+                               time=time, tris_steps=scene.tris_steps_packed)
+    torch.cuda.synchronize()
+    assert k2.LAUNCHES_MOTION == n0 + 1
+    want = k2.bvh_traverse_wide_plain(scene.bvh4_nodes, scene.tris_packed, o, d,
+                                      tm, any_hit=any_hit, time=time,
+                                      tris_steps=scene.tris_steps_packed)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_motion_kernel_matches_plain_on_soup(soup_scene, any_hit):
+    """K2's motion variant against bvh_traverse_wide_plain with the same
+    times: t, prim and barycentrics identical."""
+    scene, (o, d, tm) = soup_scene
+    rng = np.random.default_rng(5)
+    time = torch.as_tensor(rng.uniform(0, 1, o.shape[0]), dtype=torch.float32,
+                           device=o.device)
+    time[:4] = torch.tensor([0.0, 1.0, 1.0 / 3, 2.0 / 3])
+    _motion_check(scene, o, d, tm, time, any_hit)
+
+
+@pytest.fixture(scope="module")
+def motion_atrium():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from pbrt_v3_iile_tpu_torch.integrators import render as renderlib
+    from pbrt_v3_iile_tpu_torch.ops import threefry
+    from pbrt_v3_iile_tpu_torch.scene import api as apilib
+
+    dev = torch.device("cuda")
+    sd = apilib.load_scene(os.path.join(REPO, "scenes", "atrium_motion.pbrt"))
+    sd.film.x_resolution = sd.film.y_resolution = 64
+    scene, cam = renderlib.build(sd, dev)
+    o, d, _, _, _, _, time = renderlib.make_wave_prep(sd, dev)(
+        cam, threefry.prng_key(1), 0, 0)
+    return scene, o, d, time
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_motion_kernel_matches_plain_on_atrium(motion_atrium, any_hit):
+    scene, o, d, time = motion_atrium
+    _motion_check(scene, o, d, torch.full_like(time, 1e30), time, any_hit)
+
+
+@pytest.mark.cuda
+def test_motion_kernel_at_time_0_equals_static_kernel(gpu_scene):
+    """On a static scene (atrium's triangles as two equal keyframes) the
+    motion variant at time 0 is the static kernel."""
+    from pbrt_v3_iile_tpu_torch.ops import intersect_kernel as k2
+
+    scene, _, waves = gpu_scene
+    o, d, tm = waves["bounce"]
+    steps = scene.tris_packed[None].expand(2, -1, -1).contiguous()
+    got = k2.bvh_traverse_cuda(scene.bvh4_nodes, scene.bvh4_stack,
+                               scene.tris_packed, o, d, tm,
+                               time=torch.zeros_like(tm), tris_steps=steps)
+    want = k2.bvh_traverse_cuda(scene.bvh4_nodes, scene.bvh4_stack,
+                                scene.tris_packed, o, d, tm)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

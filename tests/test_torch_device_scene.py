@@ -63,8 +63,13 @@ def test_scene_from_jax_leaves_roundtrip(atrium_leaves):
 
 
 def test_unported_features_raise():
-    """Motion blur and the kd-tree are the device build's unported
-    features (hair, media, Fourier and subsurface are ported)."""
+    """The device build ports every feature of the reference's scenes
+    (motion blur and the kd-tree since the cameras-and-aggregates slice:
+    a scene that asks for the kd-tree gets it, one without it the
+    reference's placeholder leaf); what stays unported raises: the
+    integrators of ROADMAP Queue 1 item 9."""
+    from pbrt_v3_iile_tpu_torch.integrators import render as trender
+
     text = """
         Camera "perspective"
         Film "image" "integer xresolution" [8] "integer yresolution" [8]
@@ -76,7 +81,13 @@ def test_unported_features_raise():
             "point P" [0 0 1  1 0 1  0 1 1]
         WorldEnd"""
     sd = apilib.load_scene_string(text.format(accel=""))
-    assert "tri_med_in" in tdev.build_leaves(sd)
+    leaves = tdev.build_leaves(sd)
+    assert "tri_med_in" in leaves
+    assert leaves["kd_meta"].tolist() == [3] and not leaves["kd_bounds"].any()
     sd = apilib.load_scene_string(text.format(accel='Accelerator "kdtree"'))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tdev.build_leaves(sd)
+    leaves = tdev.build_leaves(sd)
+    assert leaves["kd_meta"].tolist() == [3 | 1 << 2]
+    assert leaves["kd_bounds"].any()
+    sd.integrator.kind = "bdpt"
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        trender.make_integrator_config(sd, device="cpu")

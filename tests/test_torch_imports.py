@@ -4,7 +4,9 @@ every module of pbrt_v3_iile_tpu_torch imports (the training modules
 ``ml/{losses,dataset,train,evalstats}``, ``utils/metrics`` and
 ``cli/train``, and ``integrators/ao``, ``scene/ptex``,
 ``utils/{stats,config}`` among them), a 4x4 scene parsed by the port's
-own ``scene/api.py`` renders, a scene without a Sampler line (pbrt's
+own ``scene/api.py`` renders (also on the kd-tree), a scene with camera
+and object motion and one through a realistic lens render, a scene
+without a Sampler line (pbrt's
 default, halton), with a procedural texture and a goniometric light,
 renders with ``path``, ``whitted`` and ``ambientocclusion``, a volpath
 scene with fog, a grid medium, kdsubsurface, Fourier and hair materials
@@ -37,7 +39,8 @@ for name in names:
 assert {"pbrt_v3_iile_tpu_torch." + m for m in (
     "ml.losses", "ml.dataset", "ml.train", "ml.evalstats", "utils.metrics",
     "cli.train", "integrators.ao", "scene.ptex", "utils.stats",
-    "utils.config", "ops.hair", "ops.fourierbsdf")} <= set(names)
+    "utils.config", "ops.hair", "ops.fourierbsdf", "ops.kdtree",
+    "ops.kd_kernel")} <= set(names)
 from pbrt_v3_iile_tpu_torch.scene import api as apilib
 from pbrt_v3_iile_tpu_torch.integrators import render
 sd = apilib.load_scene_string('''
@@ -56,6 +59,44 @@ sd = apilib.load_scene_string('''
 img, stats = render.render(sd, spp=1, device="cpu")
 assert img.shape == (4, 4, 3) and (img >= 0).all() and img.mean() > 0
 import numpy as np
+img_kd, _ = render.render(sd, spp=1, device="cpu", accel="kdtree")
+assert np.isfinite(img_kd).all() and img_kd.mean() > 0
+sd_m = apilib.load_scene_string('''
+    TransformTimes 0 1
+    LookAt 0 1 -4  0 0.5 0  0 1 0
+    ActiveTransform EndTime
+    Translate 0.1 0 0
+    ActiveTransform All
+    Camera "perspective" "float fov" [55]
+      "float shutteropen" [0] "float shutterclose" [1]
+    Film "image" "integer xresolution" [4] "integer yresolution" [4]
+    WorldBegin
+    LightSource "point" "rgb I" [30 30 30] "point from" [0 3 0]
+    Material "matte" "rgb Kd" [0.7 0.7 0.7]
+    AttributeBegin
+      ActiveTransform EndTime
+      Rotate 30 0 1 0
+      ActiveTransform All
+      Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+          "point P" [-6 -0.5 4  6 -0.5 4  6 6 4  -6 6 4]
+    AttributeEnd
+    WorldEnd''')
+assert sd_m.has_motion and sd_m.camera.cam_to_world_end is not None
+img_m, _ = render.render(sd_m, spp=2, device="cpu")
+assert np.isfinite(img_m).all() and img_m.mean() > 0
+sd_r = apilib.load_scene_string('''
+    LookAt 0 1 -4  0 0.5 0  0 1 0
+    Camera "realistic" "string lensfile" "scenes/lens_wide22.dat"
+      "float aperturediameter" [8] "float focusdistance" [4]
+    Film "image" "integer xresolution" [4] "integer yresolution" [4]
+    WorldBegin
+    LightSource "point" "rgb I" [30 30 30] "point from" [0 3 0]
+    Material "matte" "rgb Kd" [0.7 0.7 0.7]
+    Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+        "point P" [-6 -0.5 4  6 -0.5 4  6 6 4  -6 6 4]
+    WorldEnd''', ".")
+img_r, _ = render.render(sd_r, spp=4, device="cpu")
+assert np.isfinite(img_r).all() and img_r.mean() > 0
 text = '''
     LookAt 0 1 -4  0 0.5 0  0 1 0
     Camera "perspective" "float fov" [55]

@@ -95,8 +95,8 @@ def test_compacted_direct_pass_depth6_matches_jax():
 def test_compacted_loop_collects_the_same_gbuffer():
     sd = _atrium(tapi, 48, 32)
     scene, cam = trender.build(sd, "cpu")
-    o, d, _, k, _ = trender.make_wave_prep(sd, "cpu")(cam, threefry.prng_key(1),
-                                                       0, 0)
+    o, d, _, _, k, *_ = trender.make_wave_prep(sd, "cpu")(
+        cam, threefry.prng_key(1), 0, 0)
     # depth 1: the G-buffer is the primary segment's; the compaction runs
     # before bounce 1
     cfg = tpath.PathConfig(max_depth=1, skip_bounce0_le=True, accel="bvh")

@@ -227,3 +227,51 @@ def render_transport_golden(name):
                              accel=str(z["accel"]), compact=bool(compact),
                              device="cpu")
     return img, z, st
+
+
+def camera_tool():
+    """tools/make_camera_golden.py as a module (its top level imports no
+    jax)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_camera_golden",
+        os.path.join(REPO, "tools", "make_camera_golden.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def camera_golden(name, api=None):
+    """tests/golden/<name>.npz (a camera16_*/camera128_* golden) and the
+    parse of its scene by ``api`` (the port's unless given), with its
+    settings applied."""
+    if api is None:
+        from pbrt_v3_iile_tpu_torch.scene import api
+    tool = camera_tool()
+    z = np.load(os.path.join(REPO, "tests", "golden", f"{name}.npz"))
+    return z, tool.load_case(api, tool.case_from_golden(z))
+
+
+def render_camera_golden(name, scene=None):
+    """The port's render of a camera golden's settings on the CPU:
+    render() with the golden's accel, and its compact schedule when it
+    has one.  scene: a device scene of the golden's scene file to render
+    with (its camera is made for the golden's film).  Returns (image,
+    golden, stats)."""
+    import json
+
+    from pbrt_v3_iile_tpu_torch.integrators import render as trender
+    from pbrt_v3_iile_tpu_torch.ops import camera as tcam
+
+    z, sd = camera_golden(name)
+    prebuilt = None
+    if scene is not None:
+        prebuilt = (scene, tcam.make_camera(sd.camera, sd.film, "cpu"))
+    compact = json.loads(str(z["compact"]))
+    if compact:
+        assert tuple(compact) == trender.COMPACT_SCHEDULE
+    img, st = trender.render(sd, spp=int(z["spp"]), seed=int(z["seed"]),
+                             accel=str(z["accel"]), compact=bool(compact),
+                             device="cpu", prebuilt=prebuilt)
+    return img, z, st

@@ -56,14 +56,14 @@ def _top(n):
     return [
         ("#include <stdint.h>\n",
          '#include <stdint.h>\n\n#include "cp_async.cuh"\n'),
-        ("constexpr size_t kSmemBytes =\n"
-         "    sizeof(int2) * kShort * kThreads + sizeof(WarpTests) * kWarps;",
+        ("template <bool kMotion>\nconstexpr size_t smem_bytes() {\n"
+         "  return sizeof(int2) * kShort * kThreads + sizeof(WarpTestsT<kMotion>) * kWarps;\n",
          f"constexpr int kTopNodes = {n};\n"
-         "constexpr size_t kSmemBytes =\n"
-         "    sizeof(int2) * kShort * kThreads + sizeof(WarpTests) * kWarps +\n"
-         "    sizeof(float4) * kNodeF4 * kTopNodes;"),
-        ("  WarpTests* tests = reinterpret_cast<WarpTests*>(ring + kShort * kThreads);\n",
-         "  WarpTests* tests = reinterpret_cast<WarpTests*>(ring + kShort * kThreads);\n"
+         "template <bool kMotion>\nconstexpr size_t smem_bytes() {\n"
+         "  return sizeof(int2) * kShort * kThreads + sizeof(WarpTestsT<kMotion>) * kWarps +\n"
+         "         sizeof(float4) * kNodeF4 * kTopNodes;\n"),
+        ("      reinterpret_cast<WarpTestsT<kMotion>*>(ring + kShort * kThreads);\n",
+         "      reinterpret_cast<WarpTestsT<kMotion>*>(ring + kShort * kThreads);\n"
          "  float4* top = reinterpret_cast<float4*>(tests + kWarps);\n"
          "  for (int i = threadIdx.x; i < kTopNodes * kNodeF4; i += kThreads)\n"
          "    cp_async::copy16(top + i, wide + i);\n"
