@@ -4,8 +4,8 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (one line each):
   1. the device: torch's name for it and nvidia-smi's name and power limit;
-  2. build the three CUDA sources from pbrt_v3_iile_tpu_torch/csrc (K1, K2
-     with its motion variant, K3), one nvcc each, in parallel, printing
+  2. build the four CUDA sources from pbrt_v3_iile_tpu_torch/csrc (K1, K2
+     with its motion variant, K3, K4), one nvcc each, in parallel, printing
      ptxas's registers, shared memory and spills per kernel;
   3. build the device scene of scenes/atrium.pbrt on the GPU (with the
      BVH kernel's 4-wide nodes and the kd-tree);
@@ -148,6 +148,37 @@ Phases (one line each):
      path.py counts rays, launches a pass).  ``--cameras-only`` runs
      phases 1-5 and 12 with the timing of its two kernels, and stops
      without a result line;
+  13. bidirectional and photon transport (run after phase 12 and before
+     phase 8's profiler sessions): (a) the photon gather's range query
+     (K4) against its plain version on the first SPPM iteration of atrium
+     512^2 (the file's depth 6, radius 0.05, one photon a pixel): the slot
+     table, M and dropped identical; the whole gather (K4 and the batched
+     BSDF evaluation) against the plain path: M and dropped identical, Phi
+     within 1e-5 of its max; K4's ms by CUDA events over 20 calls, its
+     bound from the bytes it must move; (b) at 128^2, seed 3, against the
+     JAX package's renders (tests/golden/bidir128_*.npz, made by
+     tools/make_bidir_golden.py): bdpt at 4 spp (the image and, apart, the
+     splat film) and sppm at 8 iterations (radius 0.05; dropped within 1%
+     of the reference's) at phase 7's tolerances, mlt at 4 mutations per
+     pixel no further from seed 3 than the reference's seed 4 by each of
+     the three measures and with at least 99% of its chains ending on the
+     reference's final state (rendered through the CLI), each launching
+     K2 and not K1 (K4 once an SPPM iteration); grad on atrium 64^2, 2
+     spp, on clusters and on bvh, each against the reference's render on
+     its accel: the image at phase 7's tolerances, each DIFF_FIELDS
+     gradient within 1e-3 of its max where the reference's is finite, or
+     within the reference's own distance between its two accels'
+     gradients where that is larger, light_L's positive; a control: the
+     bvh gradients with the sampled direction's pdf left attached must
+     fail that gate; the CLI's --integrator bdpt|sppm --quick --spp 4 on atrium;
+     (c) measured, no threshold, at atrium 512^2: one bdpt pass (ms, Mrays/s,
+     launches, memory peak), one SPPM iteration (camera pass, photon pass
+     and gather: ms, launches, dropped), Metropolis' bootstrap and 32
+     chain steps (ms and launches a step, the estimate for the file's 100
+     mutations per pixel; phase 8 profiles one step), one 128^2 grad
+     call (ms, memory peak).
+     ``--bidir-only`` runs phases 1-3 and 13 and stops without a result
+     line;
   8. timing (printed, no threshold): each kernel and the torch
      candidate tables K1 no longer needs, at the main-path shapes, by
      CUDA events (each plain version on the call of phase 4, 5 or 12
@@ -156,9 +187,11 @@ Phases (one line each):
      atrium_motion's); K2 at every wave of a bvh pass; the atrium 512^2 depth-5 compacted
      pass as bench.py configures it, with each accel, passes in turns, in
      Mrays/s counted as path.py counts rays, the kernel launches per pass,
-     and one profiled pass each: device-busy ms and idle share; then the
-     first task of the 512^2 IILE render, and last 10 train steps of
-     phase 9, each unprofiled and then profiled.
+     and one profiled pass on clusters: device-busy ms and idle share;
+     phase 11's profiled pass with the smoke; one of phase 13's MLT
+     chain steps; then the first task of the
+     512^2 IILE render, and last 10 train steps of phase 9, each
+     unprofiled and then profiled.
 Prints the kernel JSON line, the device line, and as its last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero with no result.
 Long output (the profiler tables) goes to files in OUT_DIR.
@@ -167,6 +200,7 @@ Long output (the profiler tables) goes to files in OUT_DIR.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -358,10 +392,12 @@ class StageTimer:
 def run_counted(fn, K1, K2):
     """fn() with every kernel's launch count set to 0 just before it:
     returns its result, its wall seconds and the launches it made (K1,
-    K2, K2's motion variant and K3)."""
+    K2, K2's motion variant, K3 and K4)."""
     from pbrt_v3_iile_tpu_torch.ops import kd_kernel as K3
+    from pbrt_v3_iile_tpu_torch.ops import photon_kernel as K4
 
     K1.LAUNCHES = K2.LAUNCHES = K2.LAUNCHES_MOTION = K3.LAUNCHES = 0
+    K4.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.time()
     out = fn()
@@ -1208,8 +1244,8 @@ def transport_phase(dev, smi, K1, K2):
         runs[name] = (run, scene, cam, float(np.median(times)))
 
     def profile(profiled):
-        """One profiled pass of each, with the tracking loops' spans: their
-        calls, kernel launches, device and host ms."""
+        """One profiled pass with the smoke, with the tracking loops' spans:
+        their calls, kernel launches, device and host ms."""
         from torch.autograd import DeviceType
 
         inner = (pathlib_._delta_track, pathlib_._ratio_track)
@@ -1223,7 +1259,9 @@ def transport_phase(dev, smi, K1, K2):
         pathlib_._delta_track = spanned("delta_track", inner[0])
         pathlib_._ratio_track = spanned("ratio_track", inner[1])
         try:
-            for name, (run, scene, cam, med_s) in runs.items():
+            # the pass with the smoke: the only one with tracking loops
+            for name in ("all",):
+                run, scene, cam, med_s = runs[name]
                 prof = profiled(f"profile_transport512_{name}",
                                 lambda: float(run(scene, cam, key, 4)[0].sum()),
                                 med_s, f"profile_transport512_{name}.txt",
@@ -1283,9 +1321,11 @@ def camera_tool():
 
 
 def launch_counts(K1, K2, K3):
+    from pbrt_v3_iile_tpu_torch.ops import photon_kernel as K4
+
     return {"cluster_traverse": K1.LAUNCHES, "bvh_traverse": K2.LAUNCHES,
             "bvh_traverse_motion": K2.LAUNCHES_MOTION,
-            "kd_traverse": K3.LAUNCHES}
+            "kd_traverse": K3.LAUNCHES, "photon_gather": K4.LAUNCHES}
 
 
 def cameras_phase(dev, smi, K1, K2, K3, atrium, waves):
@@ -1557,11 +1597,411 @@ def camera_kernel_timing(cams, scene, waves, K2, K3, isect, kdtree, smi):
     return out
 
 
+# phase 13: bidirectional and photon transport.  K4's range query: per
+# in-range cell of a visible point two bucket bounds are read (8 bytes);
+# per photon tested its position (12 bytes) once
+BIDIR_FILM = 512
+K4_REPS = 20
+MLT_STEPS = 32         # chain steps measured at 512^2
+GRAD_TOL = 1e-3        # gradients: within 1e-3 of each tensor's max (or
+                       # the reference's accel spread, see bidir_phase)
+
+
+def bidir_tool():
+    """tools/make_bidir_golden.py (its top level imports no jax): load_case,
+    case_of, image_distances and chain_digest."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_bidir_golden", os.path.join(REPO, "tools", "make_bidir_golden.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bidir_phase(dev, smi, K1, K2, atrium):
+    """Phase 13: BDPT, MLT, SPPM and grad.  (a) K4 against its plain
+    version on the first SPPM iteration of atrium 512^2, then the whole
+    gather against the plain path, K4's time and bound; (b) the JAX goldens
+    of tools/make_bidir_golden.py at 128^2; (c) the 512^2 readings.
+    atrium: phase 3's (sd, scene, cam) at 512^2.  Returns K4's entry of the
+    kernels line (its launches: the 128^2 SPPM render's) and the MLT
+    profile that phase 8 runs after its timing."""
+    from pbrt_v3_iile_tpu_torch.cli import main as climain
+    from pbrt_v3_iile_tpu_torch.integrators import grad as gradlib
+    from pbrt_v3_iile_tpu_torch.integrators import mlt as mltlib
+    from pbrt_v3_iile_tpu_torch.integrators import render as renderlib
+    from pbrt_v3_iile_tpu_torch.integrators import sppm as sppmlib
+    from pbrt_v3_iile_tpu_torch.ops import bsdf as bsdflib
+    from pbrt_v3_iile_tpu_torch.ops import camera as camlib
+    from pbrt_v3_iile_tpu_torch.ops import photon_kernel as K4
+    from pbrt_v3_iile_tpu_torch.ops import samplers as smplr
+    from pbrt_v3_iile_tpu_torch.ops import threefry
+    from pbrt_v3_iile_tpu_torch.scene import api as apilib
+    from pbrt_v3_iile_tpu_torch.utils import image as imglib
+    from pbrt_v3_iile_tpu_torch.utils import vecmath as vm
+
+    t_phase = time.time()
+    tool = bidir_tool()
+    sd512, scene, _ = atrium
+    golden = lambda name: np.load(os.path.join(REPO, "tests", "golden",
+                                               f"{name}.npz"))
+
+    def case_scene(name):
+        z = golden(name)
+        case = tool.case_of(z)
+        sd = tool.load_case(apilib, case)
+        return z, case, sd, (scene, camlib.make_camera(sd.camera, sd.film, dev))
+
+    # ---- (a) K4 on the first SPPM iteration of atrium 512^2 ----
+    sd = apilib.load_scene(os.path.join(REPO, "scenes", "atrium.pbrt"))
+    sd.film.x_resolution = sd.film.y_resolution = BIDIR_FILM
+    sd.integrator.kind = "sppm"
+    sd.integrator.initial_radius = tool.RADIUS
+    H = W = BIDIR_FILM
+    N = H * W
+    cam = camlib.make_camera(sd.camera, sd.film, dev)
+    depth = sd.integrator.max_depth
+    it_key = threefry.fold_in(threefry.prng_key(3), 0)
+    py, px = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=dev),
+                            torch.arange(W, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    pix = torch.stack([px, py], -1).reshape(-1, 2)
+    k_sppm = {}
+
+    def sppm_iteration():
+        jitter = smplr.uniform(smplr.wave_key(it_key, 0, 0, smplr.DIM_PIXEL_JITTER),
+                               (N, 2), dev)
+        o0, d0 = camlib.generate_rays(cam, pix + jitter)
+        t0 = time.time()
+        Ld, vp = sppmlib._camera_pass(scene, o0, d0, it_key, depth)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        ph = sppmlib._photon_pass(scene, it_key, N, depth, dev)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        return vp, ph, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+    (vp, ph, cam_ms, ph_ms), _, l_passes = run_counted(sppm_iteration, K1, K2)
+    radius = torch.full((N,), tool.RADIUS, device=dev)
+    grid_origin = 0.5 * (scene.world_min + scene.world_max) - scene.world_radius
+    cell = 2.0 * torch.clamp(torch.max(radius), min=1e-6)
+    m, h_sorted, order = sppmlib.photon_map(ph[0], ph[3], grid_origin, cell)
+    lo_c, hi_c = sppmlib.cell_ranges(vp, radius, grid_origin, cell)
+    p_sorted = ph[0][order].contiguous()
+    args = (lo_c, hi_c, vp["valid"], vp["p"], radius * radius, h_sorted,
+            p_sorted, m)
+    l4 = K4.LAUNCHES
+    got = K4.photon_query_cuda(*args)
+    want, plain_ms = timed_once(lambda: K4.photon_query_plain(*args))
+    same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+    k4_err = max(float((a.double() - b.double()).abs().max())
+                 for a, b in zip(got, want))
+    line("K4_vs_plain_sppm512", slots_M_dropped_identical=same,
+         max_abs_err=k4_err,
+         visible_points=int(vp["valid"].sum()), photons=int(ph[3].sum()),
+         deposits=int(ph[0].shape[0]), buckets=m,
+         pairs=int((got[0] >= 0).sum()), max_M=float(got[1].max()),
+         dropped=int(got[2].sum()))
+    check(all(same), "K4 differs from photon_query_plain")
+    # the whole gather, the kernel's path against the plain path's
+    (Phi, M, drop), gather_ms = timed_once(lambda: sppmlib._gather(
+        vp, *ph, radius, grid_origin, cell))
+    cuda_query = K4.photon_query
+    K4.photon_query = lambda *a: K4.photon_query_plain(
+        *[x.contiguous() for x in a[:-1]], a[-1])
+    try:
+        Phi_p, M_p, drop_p = sppmlib._gather(vp, *ph, radius, grid_origin, cell)
+    finally:
+        K4.photon_query = cuda_query
+    phi_err = float((Phi - Phi_p).abs().max() / Phi_p.abs().max().clamp(min=1e-30))
+    line("gather_vs_plain_sppm512", M_identical=bool(torch.equal(M, M_p)),
+         dropped=int(drop), dropped_plain=int(drop_p), phi_rel_err=phi_err,
+         gather_ms=gather_ms)
+    check(torch.equal(M, M_p) and int(drop) == int(drop_p),
+          "the gather's M or dropped differs from the plain path's")
+    check(phi_err <= 1e-5, f"the gather's Phi differs by {phi_err} of its max")
+    k4_ms = cuda_ms(lambda: K4.photon_query_cuda(*args), K4_REPS)
+    # the bound: the bytes the query must move (the points' inputs, two
+    # bucket bounds a visited cell, the photons of the visited runs; the
+    # slot table, M and dropped written)
+    ks = torch.arange(8, device=dev)
+    offs = torch.stack([ks >> 2, (ks >> 1) & 1, ks & 1], -1).to(torch.int32)
+    cc = lo_c[:, None, :] + offs[None]
+    in_range = (cc <= hi_c[:, None, :]).all(-1) & vp["valid"][:, None]
+    hc = sppmlib._hash_cells(cc.reshape(-1, 3), m).reshape(N, 8)
+    lo = torch.searchsorted(h_sorted, hc)
+    hi = torch.minimum(torch.searchsorted(h_sorted, hc, right=True), lo + K4.K_CAP)
+    run_len = torch.where(in_range, hi - lo, 0)
+    k4_bytes = (N * (24 + 1 + 12 + 4) + int(in_range.sum()) * 8
+                + int(run_len.sum()) * 12 + N * (8 * K4.K_CAP * 4 + 8))
+    k4_ops = int(run_len.sum()) * 9          # 3 sub, 3 mul, 2 add, 1 compare
+    k4_bound, k4_by = bound(k4_ops, k4_bytes)
+    K4.LAUNCHES = l4
+    line("K4_timing_sppm512", ms=k4_ms, plain_ms=plain_ms, bound_ms=k4_bound,
+         bound_by=k4_by, mbytes=k4_bytes / 1e6, photons_tested=int(run_len.sum()),
+         cells_visited=int(in_range.sum()), camera_pass_ms=cam_ms,
+         photon_pass_ms=ph_ms, launches_passes=l_passes, power=smi)
+
+    # ---- (b) the goldens at 128^2, seed 3 ----
+    def no_k1(name, launches):
+        check(launches["bvh_traverse"] > 0, f"{name}: K2 never launched")
+        check(launches["cluster_traverse"] == 0,
+              f"{name}: K1 launched {launches['cluster_traverse']} times")
+
+    z, case, sd, pre = case_scene("bidir128_bdpt")
+    (img, st), secs, launches = run_counted(lambda: renderlib.render(
+        sd, spp=case["spp"], seed=case["seed"], device=dev, accel="bvh",
+        prebuilt=pre), K1, K2)
+    image_check("bidir_bdpt128", img, z["img"], *IILE_TOL)
+    image_check("bidir_bdpt128_splat", st["splat"],
+                golden("bidir128_bdpt_splat")["splat"], *IILE_TOL)
+    no_k1("bdpt128", launches)
+    line("bidir_bdpt128_run", seconds=secs, launches=launches, rays=st["rays"])
+
+    z, case, sd, pre = case_scene("bidir128_sppm")
+    (img, st), secs, launches_sppm = run_counted(lambda: renderlib.render(
+        sd, spp=case["iterations"], seed=case["seed"], device=dev,
+        prebuilt=pre), K1, K2)
+    image_check("bidir_sppm128", img, z["img"], *IILE_TOL)
+    want_drop = int(z["dropped"])
+    line("bidir_sppm128_run", seconds=secs, launches=launches_sppm,
+         dropped=st["dropped"], dropped_reference=want_drop)
+    check(abs(st["dropped"] - want_drop) <= 0.01 * want_drop,
+          f"sppm128: dropped {st['dropped']} vs the reference's {want_drop}")
+    no_k1("sppm128", launches_sppm)
+    check(launches_sppm["photon_gather"] == case["iterations"],
+          f"sppm128: K4 launched {launches_sppm['photon_gather']} times")
+
+    # mlt through the CLI (--quick is the golden's 128^2 film), its stats
+    # caught on their way out of render_mlt for the final chain state
+    z, case, _, _ = case_scene("bidir128_mlt")
+    caught = {}
+    render_mlt = mltlib.render_mlt
+
+    def catch(*a, **k):
+        img, st = render_mlt(*a, **k)
+        caught.update(st)
+        return img, st
+
+    cli_out = os.path.join(OUT_DIR, "atrium_mlt_quick.pfm")
+    mltlib.render_mlt = catch
+    try:
+        rc, secs, launches = run_counted(lambda: climain.main(
+            [os.path.join(REPO, "scenes", "atrium.pbrt"), cli_out,
+             "--integrator", "mlt", "--quick", "--spp", str(case["mpp"]),
+             "--seed", str(case["seed"]), "--quiet"]), K1, K2)
+    finally:
+        mltlib.render_mlt = render_mlt
+    img, st = imglib.read_pfm(cli_out), caught
+    check(rc == 0 and img.shape == z["img"].shape,
+          f"the CLI's mlt render: rc {rc}, shape {img.shape}")
+    dist = tool.image_distances(img, z["img"])
+    spread = json.loads(str(z["spread"]))
+    same_chains = int((tool.chain_digest(st["u"].cpu().numpy())
+                       == z["u_digest"]).sum())
+    line("bidir_mlt128", **dist, seed_spread=spread, b=st["b"],
+         b_reference=float(z["b"]), chains_equal_to_reference=same_chains,
+         chains=int(st["chains"]), mean=float(img.mean()),
+         ref_mean=float(z["img"].mean()), seconds=secs, launches=launches)
+    check(np.isfinite(img).all(), "mlt128: non-finite pixels")
+    for k, v in dist.items():
+        check(v <= spread[k], f"mlt128: {k} {v} beyond the seeds' {spread[k]}")
+    # a wrong mutation or acceptance step sends every chain its own way
+    check(same_chains >= 0.99 * int(st["chains"]),
+          f"mlt128: {same_chains} chains end on the reference's final state")
+    no_k1("mlt128", launches)
+
+    # each accel against the reference's render on it.  A float32 ulp of a
+    # hit flips a few of the 2-spp paths (K1's Pluecker test moves grazing
+    # hits, the reference's two accels differ the same way), and a tensor
+    # that few paths reach (mat_sigma: one Oren-Nayar material) follows
+    # them: each gradient is held within GRAD_TOL of its max, or within
+    # the reference's own distance between its two accels where that is
+    # larger.  A control shows that this gate fails a wrong detach: the
+    # bvh run again with the sampled direction's pdf left attached
+    gold = {a: golden("bidir128_grad64" + ("_clusters" if a == "clusters" else ""))
+            for a in ("clusters", "bvh")}
+
+    def grad_dist(got, want):
+        fin = np.isfinite(want)
+        scale = max(float(np.abs(want[fin]).max(initial=0.0)), 1e-30)
+        return float(np.abs(got[fin] - want[fin]).max(initial=0.0)) / scale
+
+    def grad_gate(grads, z, other):
+        """-> (each DIFF_FIELDS tensor's distances, the tensors failed)"""
+        errs, failed = {}, []
+        for f in gradlib.DIFF_FIELDS:
+            want = z[f"grad_{f}"]
+            got = grads[f].cpu().numpy()
+            fin = np.isfinite(want)
+            err = grad_dist(got, want)
+            accel_spread = grad_dist(np.where(fin, other[f"grad_{f}"], 0.0), want)
+            errs[f] = dict(rel_err=err, reference_accel_spread=accel_spread,
+                           nan_reference=int((~fin).sum()),
+                           nan_port=int((~np.isfinite(got)).sum()))
+            if not (np.isfinite(got[fin]).all()
+                    and err <= max(GRAD_TOL, accel_spread)):
+                failed.append(f)
+        return errs, failed
+
+    def pdf_attached(*a, **k):
+        """bsdf.sample with bs.f scaled by pdf.detach() / pdf: the same
+        values, and the gradient of beta * f / pdf with the pdf attached"""
+        bs = bsdf_sample(*a, **k)
+        ratio = bs.pdf.detach() / torch.where(bs.pdf > 0, bs.pdf, 1.0)
+        return dataclasses.replace(bs, f=bs.f * torch.where(
+            bs.pdf > 0, ratio, 1.0)[:, None])
+
+    bsdf_sample = bsdflib.sample
+    for accel in ("clusters", "bvh", "bvh_pdf_attached"):
+        z, case, sd, (scene_g, cam_g) = case_scene("bidir128_grad64" + (
+            "_clusters" if accel == "clusters" else ""))
+        other = gold["bvh" if accel == "clusters" else "clusters"]
+        cfg = renderlib.make_integrator_config(
+            sd, accel="clusters" if accel == "clusters" else "bvh", device=dev)
+        fn = gradlib.make_image_and_grad_fn(sd, cfg=cfg, spp=case["spp"],
+                                            device=dev)
+        if accel == "bvh_pdf_attached":
+            bsdflib.sample = pdf_attached
+        try:
+            (img, grads), secs, launches = run_counted(
+                lambda: fn(scene_g, cam_g, threefry.prng_key(case["seed"])), K1, K2)
+        finally:
+            bsdflib.sample = bsdf_sample
+        errs, failed = grad_gate(grads, z, other)
+        line(f"bidir_grad64_{accel}", grads=errs, failed=failed, seconds=secs,
+             launches=launches)
+        if accel == "bvh_pdf_attached":
+            check(failed, "grad64: the gate passed a gradient with the sampled "
+                  "pdf left attached")
+            continue
+        image_check(f"bidir_grad64_{accel}_image", img.cpu().numpy(), z["img"],
+                    *IILE_TOL)
+        check(not failed, f"grad64 {accel}: {failed} beyond the gate: {errs}")
+        gl, wl = grads["light_L"].cpu().numpy(), z["grad_light_L"]
+        check((wl > 0).all() and (gl > 0).all(),
+              f"grad64 {accel}: light_L's gradient is not positive: {gl}")
+        if accel == "clusters":
+            check(launches["cluster_traverse"] > 0, "grad64: K1 never launched")
+        else:
+            no_k1(f"grad64_{accel}", launches)
+
+    # the CLI's other two integrators on atrium at --quick (128^2), 4 spp
+    # (sppm's iterations, at pbrt's default radius)
+    for kind in ("bdpt", "sppm"):
+        cli_out = os.path.join(OUT_DIR, f"atrium_{kind}_quick.pfm")
+        rc, secs, n = run_counted(lambda: climain.main(
+            [os.path.join(REPO, "scenes", "atrium.pbrt"), cli_out,
+             "--integrator", kind, "--quick", "--spp", "4", "--quiet"]), K1, K2)
+        cli_img = imglib.read_pfm(cli_out)
+        line(f"bidir_cli_{kind}_quick", rc=rc, shape=list(cli_img.shape),
+             mean=float(cli_img.mean()), wall_seconds=secs, launches=n)
+        check(rc == 0 and np.isfinite(cli_img).all() and cli_img.mean() > 0.01,
+              f"the CLI's {kind} render is not a finite, lit image")
+        no_k1(f"cli_{kind}", n)
+
+    # ---- (c) measured at atrium 512^2, the file's depth 6 ----
+    sd = apilib.load_scene(os.path.join(REPO, "scenes", "atrium.pbrt"))
+    sd.film.x_resolution = sd.film.y_resolution = BIDIR_FILM
+    cam = camlib.make_camera(sd.camera, sd.film, dev)
+    sd.integrator.kind = "bdpt"
+    run = renderlib.render_pass_fn(sd, renderlib.make_integrator_config(
+        sd, accel="bvh", device=dev), dev, chunk_rows=128)
+    torch.cuda.reset_peak_memory_stats()
+
+    def bdpt_pass():
+        rays = 0
+        for row0 in range(0, H, 128):
+            L, _, aux = run(scene, cam, threefry.prng_key(0), 0, row0)
+            rays += int(aux["rays"])
+        return rays
+
+    rays, secs, launches = run_counted(bdpt_pass, K1, K2)
+    line("bidir_bdpt512_pass", ms=secs * 1e3, rays=rays, mrays_per_s=rays / secs / 1e6,
+         launches=launches, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+         power=smi)
+
+    sd.integrator.kind = "sppm"
+    sd.integrator.initial_radius = tool.RADIUS
+    it_key = threefry.fold_in(threefry.prng_key(0), 1)
+    (vp, ph, cam_ms, ph_ms), _, l_passes = run_counted(sppm_iteration, K1, K2)
+    (_, _, drop), g_secs, l_gather = run_counted(lambda: sppmlib._gather(
+        vp, *ph, radius, grid_origin, cell), K1, K2)
+    line("bidir_sppm512_iteration", camera_pass_ms=cam_ms, photon_pass_ms=ph_ms,
+         gather_ms=g_secs * 1e3, launches_passes=l_passes,
+         launches_gather=l_gather, dropped=int(drop), power=smi)
+
+    # MLT: the bootstrap's one evaluation of n_bootstrap samples, then
+    # MLT_STEPS chain steps (render_mlt's own step) from its chain starts
+    mcfg = mltlib.MLTConfig(max_depth=depth)
+    eval_fn = lambda u: mltlib._eval_bdpt(scene, cam, 0, False, u, depth)
+    k_boot, k_sel, k_run = threefry.split(threefry.prng_key(0), 3)
+    u_boot = threefry.uniform(k_boot, (mcfg.n_bootstrap, mltlib._dims(mcfg)), dev)
+    (L_boot, _), boot_s, l_boot = run_counted(lambda: eval_fn(u_boot), K1, K2)
+    I_boot = vm.luminance(torch.abs(L_boot))
+    u0 = u_boot[threefry.categorical(k_sel, threefry.xla_log(
+        torch.clamp(I_boot, min=1e-20)), (mcfg.n_chains,))]
+    L0, xy0 = eval_fn(u0)
+    chain0 = (u0, L0, vm.luminance(torch.abs(L0)), xy0)
+    step_keys = threefry.split(k_run, MLT_STEPS)
+    mlt_film = torch.zeros((N, 3), device=dev)
+
+    def mlt_steps(chain, keys):
+        for k in keys:
+            chain = mltlib.chain_step(eval_fn, chain, k, mcfg, mlt_film, H, W)
+        return chain
+
+    chain, secs, launches = run_counted(lambda: mlt_steps(chain0, step_keys),
+                                        K1, K2)
+    step_ms = secs * 1e3 / MLT_STEPS
+    n_file = 100 * N // mcfg.n_chains
+    line("bidir_mlt512", bootstrap_s=boot_s, launches_bootstrap=l_boot,
+         steps=MLT_STEPS, ms_per_step=step_ms,
+         launches_per_step={k: v / MLT_STEPS for k, v in launches.items()},
+         steps_for_100_mpp=n_file,
+         estimate_100_mpp_s=boot_s + n_file * step_ms / 1e3,
+         film_finite=bool(torch.isfinite(mlt_film).all()), power=smi)
+    check(bool(torch.isfinite(mlt_film).all()), "mlt512: non-finite film")
+    no_k1("mlt512", launches)
+
+    def profile_mlt(profiled):
+        """Phase 8, after its timing: one chain step under the profiler
+        (its device_events are the kernels a step launches)."""
+        profiled("profile_mlt512_step", lambda: mlt_steps(chain, step_keys[:1]),
+                 step_ms / 1e3, "profile_mlt512_step.txt",
+                 ("profiled_step_ms", "unprofiled_step_ms"))
+
+    sd128 = apilib.load_scene(os.path.join(REPO, "scenes", "atrium.pbrt"))
+    sd128.film.x_resolution = sd128.film.y_resolution = 128
+    cam128 = camlib.make_camera(sd128.camera, sd128.film, dev)
+    fn = gradlib.make_image_and_grad_fn(sd128, cfg=renderlib.make_integrator_config(
+        sd128, accel="clusters", device=dev), spp=1, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    (img, grads), secs, launches = run_counted(
+        lambda: fn(scene, cam128, threefry.prng_key(0)), K1, K2)
+    line("bidir_grad128", ms=secs * 1e3, launches=launches,
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+         finite=bool(all(torch.isfinite(g).all() for f, g in grads.items()
+                         if f != "mat_rough")), power=smi)
+    line("bidir_phase", wall_seconds=time.time() - t_phase)
+    return dict(name="photon_gather", route="cuda",
+                source="pbrt_v3_iile_tpu_torch/csrc/photon_gather.cu",
+                replaces="pbrt_v3_iile_tpu/integrators/sppm.py:212",
+                replaces_note=("_gather's range query: a fori_loop of K_CAP "
+                               "steps in each of 8 cells, no pallas_call"),
+                launches=launches_sppm["photon_gather"], max_abs_err=k4_err,
+                ms=k4_ms, plain_ms=plain_ms, bound_ms=k4_bound, bound_by=k4_by,
+                library_ms=None,
+                launches_per_sppm_iteration=l_gather["photon_gather"]), profile_mlt
+
+
 def main():
     import sys
 
     t_start = time.time()
     cameras_only = "--cameras-only" in sys.argv[1:]
+    bidir_only = "--bidir-only" in sys.argv[1:]
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1593,7 +2033,8 @@ def main():
 
     # ---- 2. build the kernels ----
     t0 = time.time()
-    sources = ("bvh_traverse", "cluster_traverse", "kd_traverse")
+    sources = ("bvh_traverse", "cluster_traverse", "kd_traverse",
+               "photon_gather")
     with ThreadPoolExecutor(len(sources)) as ex:   # one nvcc per source, together
         list(ex.map(lambda n: _build.load(n, verbose=True), sources))
     line("build", seconds=time.time() - t0, dir=_build.BUILD_DIR)
@@ -1613,6 +2054,11 @@ def main():
          kd_nodes=scene.kd_meta.shape[0], kd_prim_refs=scene.kd_prims.shape[0],
          kd_leaves_over_8=int((kd_leaf & (scene.kd_meta >> 2 > kdtree.MAX_PRIMS)
                                ).sum()))
+
+    if bidir_only:   # phases 1-3 and 13
+        k4, _ = bidir_phase(dev, smi, K1, K2, (sd, scene, cam))
+        line("bidir_only", k4=k4, wall_seconds=time.time() - t_start)
+        return
 
     # ---- 4. K2 vs the plain walker ----
     prep = renderlib.make_wave_prep(sd, dev, chunk_rows=128)
@@ -1813,6 +2259,10 @@ def main():
     # ---- 12. cameras and aggregates, before any profiler session ----
     cams = cameras_phase(dev, smi, K1, K2, K3, (sd, scene, cam), waves)
 
+    # ---- 13. bidirectional and photon transport, before any profiler
+    # session ----
+    k4, profile_mlt = bidir_phase(dev, smi, K1, K2, (sd, scene, cam))
+
     # ---- 8. timing, bounds ----
     t_timing = time.time()
     # the timed passes come first: a profiler session leaves tracing
@@ -1968,15 +2418,17 @@ def main():
                   for e in top], power=smi)
         return prof
 
+    # one profiled pass of the main path, on its default accel (the bvh
+    # pass's device time is K2's waves above)
     t_profiles = time.time()
-    for accel, run in runs.items():
-        profiled(f"profile_atrium512_pass_{accel}",
-                 lambda: float(run(scene, cam, key, n_pass + 1)[0].sum()),
-                 float(np.median(res[accel]["times"])),
-                 f"profile_atrium512_{accel}.txt",
-                 ("profiled_pass_ms", "median_pass_ms"))
+    profiled("profile_atrium512_pass_clusters",
+             lambda: float(runs["clusters"](scene, cam, key, n_pass + 1)[0].sum()),
+             float(np.median(res["clusters"]["times"])),
+             "profile_atrium512_clusters.txt",
+             ("profiled_pass_ms", "median_pass_ms"))
 
     transport["profile"](profiled)
+    profile_mlt(profiled)
 
     # the first task of the full-width IILE render (4 chunks of 65,536
     # pixels), timed unprofiled and then profiled
@@ -2067,6 +2519,7 @@ def main():
              bound_by=k_cams["kd_bound_by"], library_ms=None,
              launches_per_pass_kdtree512=cams["per_pass"]["atrium_kdtree"][
                  "kd_traverse"]),
+        k4,
     ]
     line("timing_phase", wall_seconds=time.time() - t_timing,
          profiles_seconds=time.time() - t_profiles)

@@ -3,7 +3,7 @@
 Usage:
   python -m pbrt_v3_iile_tpu_torch.cli.main scene.pbrt [out.pfm] \
       [--integrator path|volpath|directlighting|whitted|ambientocclusion|\
-                    iispt] \
+                    bdpt|mlt|sppm|iispt] \
       [--spp N] [--seed S] [--accel bvh|clusters|kdtree] [--compact] \
       [--device cuda|cpu] [--quick] [--verbose | --quiet] [--stats] \
       [--filmCheckpoint FILE [--checkpointEvery N]] \
@@ -29,6 +29,12 @@ checkpoint pickle, or a flat npz (``.npz``).
 
 ``volpath`` renders participating media (homogeneous and grid-density);
 ``path`` renders them too when the scene has any, as the reference does.
+
+``bdpt`` (with light tracing through a pinhole camera), ``mlt``
+(Metropolis over BDPT proposals; ``--spp`` sets the mutations per pixel,
+at least 4) and ``sppm`` (``--spp`` sets the iterations, at least 4)
+traverse the BVH whatever ``--accel`` says, as the reference's do, and
+refuse a scene with object motion or media.
 
 ``--accel kdtree`` renders on the kd-tree (built for the render whether or
 not the scene has an ``Accelerator "kdtree"`` line); a scene with object
@@ -74,7 +80,7 @@ def main(argv=None):
                     help="override the sampler's pixelsamples")
     ap.add_argument("--integrator", default=None,
                     choices=["path", "volpath", "directlighting", "whitted",
-                             "ambientocclusion", "iispt"],
+                             "ambientocclusion", "bdpt", "mlt", "sppm", "iispt"],
                     help="override the scene's integrator")
     ap.add_argument("--iileIndirect", "--iileIndirectTasks", type=int,
                     default=16, dest="iile_indirect", help="IILE indirect tasks")
@@ -95,7 +101,9 @@ def main(argv=None):
     ap.add_argument("--accel", default=None,
                     choices=["bvh", "clusters", "kdtree"],
                     help="aggregate (default: the scene file's Accelerator, "
-                         "else clusters on CUDA and bvh on CPU)")
+                         "else clusters on CUDA and bvh on CPU); bdpt, sppm "
+                         "and mlt's BDPT proposals traverse the BVH whatever "
+                         "it is")
     ap.add_argument("--compact", action="store_true",
                     help="compacted-wavefront path loop")
     ap.add_argument("--device", default="cuda", help="torch device")
@@ -169,7 +177,8 @@ def main(argv=None):
                                       checkpoint_every=args.checkpointEvery)
         write_output(out, img)
     if args.stats:
-        print(json.dumps(stats), file=sys.stderr)
+        print(json.dumps({k: v for k, v in stats.items()
+                          if isinstance(v, (int, float, str))}), file=sys.stderr)
         print(statslib.report(), file=sys.stderr)
     print(f"wrote {out}")
     return 0

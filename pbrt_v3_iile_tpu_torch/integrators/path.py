@@ -35,8 +35,15 @@ every traversal and interaction of the path (closest hit, NEE shadows,
 the BSSRDF probe and its exit shadow), and rides the compacted loop's
 sort with the rest of the state.
 
-Not ported: explicit primary samples (``u_prim``) and the differentiable
-mode.
+Explicit primary samples (``u_prim``, PSSMLT): the bounce loop's medium,
+light-selection, light, lobe, direction and roulette uniforms come from
+a (N, max_depth + 1, PRIM_DIMS_PER_BOUNCE) tensor, so that a path is a
+deterministic function of it.  The differentiable mode (``grad``,
+``integrators/grad.py``) detaches the path's geometry and its sampling
+decisions (the traversal and the interaction, the sampled direction and
+its pdfs, the roulette's throughput) exactly where the reference stops
+gradients, so that autograd differentiates the shading terms along
+frozen paths.
 """
 
 from __future__ import annotations
@@ -60,6 +67,11 @@ from ..utils import vecmath as vm
 
 RR_START = 3  # Russian roulette from the bounce after this one
 
+# the primary samples of one bounce when an explicit u drives the tracer
+# (PSSMLT): [medium u0, u1, light select, light u0..u2, lobe, direction
+# u0, u1, roulette]
+PRIM_DIMS_PER_BOUNCE = 10
+
 
 @dataclass(frozen=True)
 class PathConfig:
@@ -80,6 +92,7 @@ class PathConfig:
     has_hair: bool = None          # compute the hair fiber lobe (None:
                                    # when the scene holds a hair material)
     has_subsurface: bool = False   # the exact BSSRDF continuation
+    differentiable: bool = False   # detached sampling (integrators/grad.py)
 
     def replace(self, **kw):
         return replace(self, **kw)
@@ -121,16 +134,21 @@ def _initial_state(scene, o0, d0, beta0):
 
 
 def trace_paths(scene, o0, d0, key, cfg: PathConfig, beta0=None,
-                sample_ctx=None, collect_aux: bool = False, time=None):
+                sample_ctx=None, collect_aux: bool = False, time=None,
+                u_prim=None):
     """Trace N paths -> (radiance (N,3), aux dict with "rays", and with
     collect_aux the primary hit's "distance" (N,) (-1 on a miss) and
     geometric "normal" (N,3)).  beta0: (N,3) initial throughput (the
     realistic camera's weights); time: (N,) shutter times in [0, 1] of a
-    scene with object motion."""
+    scene with object motion; u_prim: (N, max_depth + 1,
+    PRIM_DIMS_PER_BOUNCE) explicit primary samples (not with nee_all),
+    traced on the uncompacted loop."""
     N = o0.shape[0]
     if beta0 is None:
         beta0 = torch.ones((N, 3), dtype=torch.float32, device=o0.device)
-    if cfg.compact_schedule and cfg.max_depth > 0:
+    if u_prim is not None and cfg.nee_all:
+        raise ValueError("explicit primary samples take one light sample a bounce")
+    if cfg.compact_schedule and cfg.max_depth > 0 and u_prim is None:
         return _trace_paths_compact(scene, o0, d0, key, cfg, beta0, sample_ctx,
                                     collect_aux, time)
     st = _initial_state(scene, o0, d0, beta0)
@@ -138,7 +156,8 @@ def trace_paths(scene, o0, d0, key, cfg: PathConfig, beta0=None,
     for b in range(cfg.max_depth + 1):
         st = statslib.timed(f"path/bounce[{b}]", _bounce, scene, st, b, key,
                             cfg, sample_ctx, collect_aux=collect_aux and b == 0,
-                            time=time)
+                            time=time,
+                            ub=None if u_prim is None else u_prim[:, b])
         if collect_aux and b == 0:
             aux = dict(distance=st.aux_t, normal=st.aux_n)
     L = torch.where(torch.isfinite(st.L), st.L, torch.zeros_like(st.L))
@@ -386,12 +405,22 @@ def _ratio_track(scene, key, bounce, medc, need, dist, o, d, sig_t0, steps):
     return trv
 
 
+def _detach_fields(x):
+    """A dataclass of tensors with each tensor detached."""
+    return type(x)(**{k: v.detach() if isinstance(v, torch.Tensor) else v
+                      for k, v in vars(x).items()})
+
+
 def _bounce(scene, st: PathState, bounce: int, key, cfg: PathConfig,
             sample_ctx=None, presorted: bool = False,
-            collect_aux: bool = False, time=None) -> PathState:
+            collect_aux: bool = False, time=None, ub=None) -> PathState:
     """One wavefront bounce: intersect -> medium event -> Le -> NEE ->
-    BSDF, phase or BSSRDF continuation -> Russian roulette."""
-    o, d, beta, L = st.o, st.d, st.beta, st.L
+    BSDF, phase or BSSRDF continuation -> Russian roulette.  ub: (N,
+    PRIM_DIMS_PER_BOUNCE) explicit primary samples of this bounce."""
+    # the differentiable mode freezes the path's geometry and sampling
+    sg = (lambda x: x.detach()) if cfg.differentiable else (lambda x: x)
+    sg_all = _detach_fields if cfg.differentiable else (lambda x: x)
+    o, d, beta, L = sg(st.o), sg(st.d), st.beta, st.L
     alive, spec, prev_pdf, eta_scale = st.alive, st.spec, st.prev_pdf, st.eta_scale
     ghost, med = st.ghost, st.med
     N = o.shape[0]
@@ -404,8 +433,8 @@ def _bounce(scene, st: PathState, bounce: int, key, cfg: PathConfig,
     trav = dict(accel=cfg.accel, cluster_maxc=cfg.cluster_maxc,
                 presorted=presorted, time=time)
     t_max = torch.where(alive, 1e30, -1.0)
-    hit = isect.intersect(scene, o, d, t_max, **trav)
-    it = isect.make_interaction(scene, o, d, hit, time=time)
+    hit = sg_all(isect.intersect(scene, o, d, t_max, **trav))
+    it = sg_all(isect.make_interaction(scene, o, d, hit, time=time))
     ray_count = st.ray_count + alive.sum()
     found = hit.valid & alive
 
@@ -416,7 +445,7 @@ def _bounce(scene, st: PathState, bounce: int, key, cfg: PathConfig,
     p_med = o
     if cfg.volumetric:
         D = scene.med_sigma_a.shape[0]
-        u_med = draw(smplr.DIM_PROBE, (N, 2))
+        u_med = ub[:, 0:2] if ub is not None else draw(smplr.DIM_PROBE, (N, 2))
         medc = torch.clamp(med, 0, D - 1).long()
         sig_a, sig_s = scene.med_sigma_a[medc], scene.med_sigma_s[medc]
         sig_t = sig_a + sig_s
@@ -565,6 +594,7 @@ def _bounce(scene, st: PathState, bounce: int, key, cfg: PathConfig,
         wi_l = vm.to_local(ls.wi, t_f, b_f, ns)
         f_l, scat_pdf = bsdflib.evaluate(params, wo_l, wi_l,
                                          enable_hair=cfg.has_hair)
+        scat_pdf = sg(scat_pdf)
         cos_l = vm.absdot(ls.wi, ns)
         can_nee = (alive & (bsdflib.has_nonspecular(params) | scatter)
                    & (ls.pdf > 0.0) & (vm.luminance(ls.li) > 0.0)
@@ -619,8 +649,8 @@ def _bounce(scene, st: PathState, bounce: int, key, cfg: PathConfig,
             L = L + c_nee
             ray_count = ray_count + n_sh
     else:
-        u_sel = draw(smplr.DIM_LIGHT_SELECT, (N,))
-        u_l = draw(smplr.DIM_LIGHT_SAMPLE, (N, 3))
+        u_sel = ub[:, 2] if ub is not None else draw(smplr.DIM_LIGHT_SELECT, (N,))
+        u_l = ub[:, 3:6] if ub is not None else draw(smplr.DIM_LIGHT_SAMPLE, (N, 3))
         if cfg.spatial_lights:
             p_sel = (torch.where(scatter[:, None], p_med, it.p)
                      if cfg.volumetric else it.p)
@@ -632,12 +662,14 @@ def _bounce(scene, st: PathState, bounce: int, key, cfg: PathConfig,
         ray_count = ray_count + n_sh
 
     # ---------- BSDF sample / continuation ----------
-    u_lobe = draw(smplr.DIM_BSDF_LOBE, (N,))
-    u_dir = draw(smplr.DIM_BSDF_DIR, (N, 2))
+    u_lobe = ub[:, 6] if ub is not None else draw(smplr.DIM_BSDF_LOBE, (N,))
+    u_dir = ub[:, 7:9] if ub is not None else draw(smplr.DIM_BSDF_DIR, (N, 2))
     bs = bsdflib.sample(params, wo_l, u_lobe, u_dir, enable_hair=cfg.has_hair)
-    wi_w = vm.to_world(bs.wi, t_f, b_f, ns)
-    cos_w = vm.absdot(wi_w, ns)
-    beta_new = beta * bs.f * (cos_w / torch.clamp(bs.pdf, min=1e-12))[:, None]
+    # detached sampling: the direction and its pdf are frozen, bs.f carries
+    # the material's gradient
+    wi_w = sg(vm.to_world(bs.wi, t_f, b_f, ns))
+    cos_w = sg(vm.absdot(wi_w, ns))
+    beta_new = beta * bs.f * (cos_w / torch.clamp(sg(bs.pdf), min=1e-12))[:, None]
     if cfg.volumetric:
         # a medium vertex samples Henyey-Greenstein (p / pdf = 1); a
         # null-material boundary continues straight on
@@ -656,7 +688,7 @@ def _bounce(scene, st: PathState, bounce: int, key, cfg: PathConfig,
     if cfg.direct_only:
         ghost = alive & ~bs.is_specular
     spec = bs.is_specular
-    prev_pdf = torch.where(bs.is_specular, 1.0, bs.pdf)
+    prev_pdf = sg(torch.where(bs.is_specular, 1.0, bs.pdf))
     if cfg.volumetric:
         spec = torch.where(scatter, False, torch.where(passthrough, True, spec))
         prev_pdf = torch.where(scatter, pdf_hg, prev_pdf)
@@ -677,13 +709,13 @@ def _bounce(scene, st: PathState, bounce: int, key, cfg: PathConfig,
         L, beta, o, d, alive, spec, prev_pdf, ray_count = _bssrdf(
             scene, cfg, trav, draw, it, params, sss, beta_pre_sss, u_lobe,
             wo_l, t_f, b_f, ns, ng_f,
-            (L, beta, o, d, alive, spec, prev_pdf, ray_count))
+            (L, beta, o, d, alive, spec, prev_pdf, ray_count), sg_all)
 
     # ---------- russian roulette ----------
-    rr_beta_max = vm.max_component(beta * eta_scale[:, None])
+    rr_beta_max = sg(vm.max_component(beta * eta_scale[:, None]))
     do_rr = (rr_beta_max < cfg.rr_threshold) & (bounce > RR_START)
     q = torch.clamp(1.0 - rr_beta_max, min=0.05)
-    u_rr = draw(smplr.DIM_RR, (N,))
+    u_rr = ub[:, 9] if ub is not None else draw(smplr.DIM_RR, (N,))
     killed = do_rr & (u_rr < q)
     alive = alive & ~killed
     beta = torch.where((do_rr & ~killed)[:, None],
@@ -697,7 +729,7 @@ X999 = 19.87   # the radius (over d) below which the mixture has 0.999
 
 
 def _bssrdf(scene, cfg, trav, draw, it, params, sss, beta_pre, u_lobe, wo_l,
-            t_f, b_f, ns, ng_f, state):
+            t_f, b_f, ns, ng_f, state, sg_all=lambda x: x):
     """The exact BSSRDF continuation of the lanes ``sss`` (bssrdf.cpp
     SeparableBSSRDF::Sample_Sp and Pdf_Sp, path.cpp's subsurface block).
     A Burley normalized-diffusion radial profile stands in for the
@@ -707,7 +739,8 @@ def _bssrdf(scene, cfg, trav, draw, it, params, sss, beta_pre, u_lobe, wo_l,
     Exit point: a probe ray along a MIS-selected local axis, the closest
     hit of the same material.  Exit lobe: cosine x (1 - Fr) / c (the
     SeparableBSSRDFAdapter; the entry and exit eta^2 scalings cancel).
-    Returns the updated (L, beta, o, d, alive, spec, prev_pdf, ray_count)."""
+    Returns the updated (L, beta, o, d, alive, spec, prev_pdf, ray_count);
+    sg_all detaches the probe's interaction in the differentiable mode."""
     L, beta, o, d, alive, spec, prev_pdf, ray_count = state
     N = o.shape[0]
     ones = torch.ones_like(params.eta)
@@ -752,7 +785,8 @@ def _bssrdf(scene, cfg, trav, draw, it, params, sss, beta_pre, u_lobe, wo_l,
     probe_tmax = torch.where(do_probe, 2.0 * half_l, -1.0)
     ph = isect.intersect(scene, base, p_dir, probe_tmax, accel=cfg.accel,
                          cluster_maxc=cfg.cluster_maxc, time=trav["time"])
-    pit = isect.make_interaction(scene, base, p_dir, ph, time=trav["time"])
+    # the differentiable mode freezes the probe's geometry as the path's
+    pit = sg_all(isect.make_interaction(scene, base, p_dir, ph, time=trav["time"]))
     ray_count = ray_count + do_probe.sum()
     same = ph.valid & (pit.mat == it.mat)
     diffv = pit.p - it.p

@@ -1,10 +1,13 @@
 """Render driver: scene file -> device scene -> passes -> film (port of
 ``integrators/render.py``: the ``path``, ``volpath``, ``directlighting``,
-``whitted`` and ``ambientocclusion`` integrators; ``iispt`` renders
-through ``integrators/iispt.py``), with every camera (the realistic lens
-camera weights its rays), camera and object motion blur (a shutter time
-per pixel sample) and the three accels (``clusters``, ``bvh``,
-``kdtree``).
+``whitted``, ``ambientocclusion`` and ``bdpt`` integrators; ``mlt`` and
+``sppm`` have their own drivers in ``integrators/mlt.py`` and
+``integrators/sppm.py``, ``iispt`` renders through
+``integrators/iispt.py``), with every camera (the realistic lens camera
+weights its rays), camera and object motion blur (a shutter time per
+pixel sample) and the three accels (``clusters``, ``bvh``, ``kdtree``).
+``bdpt``, ``sppm`` and BDPT-MLT traverse the BVH whatever the accel, as
+the reference does; they take no object motion and no media.
 
 Each pass is one wavefront of 1 spp over the image (or over row chunks
 when the image exceeds ``max_wave`` rays); passes loop on the host and
@@ -29,6 +32,7 @@ from ..scene import api as apilib
 from ..scene import device as devlib
 from ..utils import stats as statslib
 from . import ao as aolib
+from . import bdpt as bdptlib
 from . import path as pathlib_
 
 COMPACT_SCHEDULE = (1.0, 1.0, 0.5, 0.25, 0.25, 0.125)
@@ -54,7 +58,10 @@ def make_integrator_config(sd, accel: str = None, device="cuda"):
     caller asks for the CPU).  ``path``, ``volpath`` and ``iispt`` (the
     path integrator settings; IILE's own stages set theirs; a scene with
     media is volumetric whatever its integrator, and its media, hair and
-    subsurface materials switch on their code), ``directlighting``
+    subsurface materials switch on their code), ``bdpt``, ``mlt`` and
+    ``sppm`` (the shared knobs; each has its own estimator, and the
+    reference's ignores object motion and media, which they refuse),
+    ``directlighting``
     (specular paths only, all lights sampled under the "all" strategy),
     ``whitted`` (as the reference maps it: every light sampled, specular
     paths only) and ``ambientocclusion`` (only the accel is read:
@@ -62,6 +69,19 @@ def make_integrator_config(sd, accel: str = None, device="cuda"):
     kind = sd.integrator.kind
     accel = resolve_accel(sd, accel, device)
     has_hair = any(m.kind == apilib.MAT_HAIR for m in sd.materials)
+    if kind in ("bdpt", "mlt", "sppm"):
+        if sd.has_motion or sd.media:
+            raise ValueError(
+                f"integrator {kind!r}: the reference renders a scene with "
+                "object motion or media as if both were absent; render it "
+                "with 'path' or 'volpath'")
+        return pathlib_.PathConfig(
+            max_depth=sd.integrator.max_depth,
+            rr_threshold=sd.integrator.rr_threshold, accel=accel,
+            spatial_lights=sd.integrator.light_strategy == "spatial",
+            has_hair=has_hair,
+            has_subsurface=any(m.kind == apilib.MAT_SUBSURFACE
+                               for m in sd.materials))
     if kind in ("path", "volpath", "iispt"):
         media = sd.media
         return pathlib_.PathConfig(
@@ -82,8 +102,7 @@ def make_integrator_config(sd, accel: str = None, device="cuda"):
     if kind == "ambientocclusion":
         return pathlib_.PathConfig(max_depth=sd.integrator.max_depth,
                                    accel=accel)
-    raise NotImplementedError(
-        f"integrator {kind!r} is not ported yet (ROADMAP Queue 1 item 9)")
+    raise ValueError(f"unknown integrator {kind!r}")
 
 
 def build(sd, device, with_clusters: bool = None, with_kdtree: bool = None):
@@ -151,10 +170,14 @@ def make_wave_prep(sd, device, chunk_rows: int = 0):
 
 def render_pass_fn(sd, cfg, device, chunk_rows: int = 0):
     """f(scene, cam, key, pass_idx, row0=0) -> (L (CH,W,3), jitter
-    (CH,W,2), aux) for one pass over rows [row0, row0 + CH)."""
+    (CH,W,2), aux) for one pass over rows [row0, row0 + CH); for ``bdpt``
+    aux["splat"] is the pass's (H*W + 1, 3) light-tracing film."""
     H, W = sd.film.y_resolution, sd.film.x_resolution
     CH = chunk_rows if chunk_rows > 0 else H
     prep = make_wave_prep(sd, device, chunk_rows)
+    # t = 1 light tracing needs the camera's importance: the pinhole only
+    pinhole = (camlib.KIND.get(sd.camera.kind, 0) == 0
+               and sd.camera.lens_radius <= 0.0)
 
     def run(scene, cam, key, pass_idx: int, row0: int = 0):
         o, d, w, jitter, k, ctx, rtime = prep(cam, key, pass_idx, row0)
@@ -164,6 +187,12 @@ def render_pass_fn(sd, cfg, device, chunk_rows: int = 0):
             if w is not None:
                 L = L * w[:, None]
             aux = {"rays": torch.tensor(2 * CH * W, device=o.device)}
+        elif sd.integrator.kind == "bdpt":
+            L, aux = bdptlib.trace_bdpt(
+                scene, o, d, k, max_depth=sd.integrator.max_depth,
+                cam=cam if pinhole else None, film_hw=(H, W) if pinhole else None)
+            if w is not None:
+                L = L * w[:, None]
         else:
             beta0 = None if w is None else w[:, None].expand(-1, 3).contiguous()
             L, aux = pathlib_.trace_paths(scene, o, d, k, cfg, beta0=beta0,
@@ -199,11 +228,32 @@ def render(sd, spp: int = None, seed: int = 0, max_wave: int = 1 << 16,
     checkpoint: a film checkpoint file, resumed from when it exists (its
     seed must be this render's) and written every checkpoint_every
     passes.  report(passes_done, spp, film) is called after each pass.
+    For ``bdpt`` the stats also carry "splat", the light-tracing film
+    (H,W,3) that the image includes.
     prebuilt: (scene, cam) of ``build(sd, device, ...)`` with what the
     resolved accel needs (the cluster pack, the kd-tree), to render
     without building them again; a scene without it raises."""
     device = torch.device(device)
     cfg = make_integrator_config(sd, accel=accel, device=device)
+    kind = sd.integrator.kind
+    if kind in ("mlt", "sppm"):
+        # Metropolis and photon mapping have their own drivers; spp, when
+        # given, sets their mutations per pixel or iterations, at least 4
+        if kind == "mlt":
+            from . import mlt as mltlib
+            mpp = (sd.integrator.mutations_per_pixel if spp is None
+                   else max(spp, 4))
+            img, st = mltlib.render_mlt(sd, mutations_per_pixel=mpp, seed=seed,
+                                        device=device, accel=cfg.accel,
+                                        prebuilt=prebuilt)
+            if report is not None:
+                report(1, 1, None)
+            return img, st
+        from . import sppm as sppmlib
+        n_it = sd.integrator.sppm_iterations if spp is None else max(spp, 4)
+        return sppmlib.render_sppm(sd, n_iterations=n_it, seed=seed,
+                                   device=device, report=report,
+                                   prebuilt=prebuilt)
     if compact:
         cfg = cfg.replace(compact_schedule=COMPACT_SCHEDULE)
     if cluster_maxc is not None:
@@ -239,6 +289,7 @@ def render(sd, spp: int = None, seed: int = 0, max_wave: int = 1 << 16,
                yw=sd.film.filter_ywidth, alpha=sd.film.filter_alpha,
                B=sd.film.filter_b, C=sd.film.filter_c, tau=sd.film.filter_tau)
     ray_parts = []
+    splat = None
     t0 = time.time()
     for p in range(start_pass, spp):
         Ls, Js = [], []
@@ -248,6 +299,8 @@ def render(sd, spp: int = None, seed: int = 0, max_wave: int = 1 << 16,
                 Ls.append(L)
                 Js.append(jitter)
                 ray_parts.append(aux["rays"])
+                if "splat" in aux:
+                    splat = aux["splat"] if splat is None else splat + aux["splat"]
         # (a stage's sync waits for all of its device's work, this add too)
         with statslib.stage("render/film_add", sync=Ls):
             film = filmlib.add_sample_image(film, torch.cat(Ls), torch.cat(Js),
@@ -256,11 +309,18 @@ def render(sd, spp: int = None, seed: int = 0, max_wave: int = 1 << 16,
             save_film_checkpoint(checkpoint, film, p + 1, seed)
         if report is not None:
             report(p + 1, spp, film)
-    img = filmlib.resolve(film).cpu().numpy()
+    img = filmlib.resolve(film)
+    extra = {}
+    if splat is not None:
+        # the light-tracing splats, scaled by 1/spp (film.cpp WriteImage)
+        splat_img = splat[:H * W].reshape(H, W, 3) / spp
+        img = img + splat_img
+        extra["splat"] = splat_img.cpu().numpy()
+    img = img.cpu().numpy()
     total_rays = int(torch.stack(ray_parts).sum()) if ray_parts else 0
     if statslib.enabled():
         statslib.add_counter("rays/total", total_rays)
         statslib.add_counter("pixels x passes", (spp - start_pass) * H * W)
     dt = time.time() - t0
     return img, dict(seconds=dt, rays=total_rays,
-                     mrays_per_s=total_rays / max(dt, 1e-9) / 1e6)
+                     mrays_per_s=total_rays / max(dt, 1e-9) / 1e6, **extra)

@@ -13,7 +13,7 @@ such a material.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import torch
 
@@ -49,6 +49,28 @@ class BsdfParams:
     fourier_id: torch.Tensor = None  # (N,) i32 Fourier table or -1
     fourier: object = None   # the scene's FourierDev, None without one
     has_hair: bool = False   # the scene holds a hair material
+
+
+def map_params(fn, *ps: BsdfParams) -> BsdfParams:
+    """BsdfParams whose tensor fields are fn(field of each of ps); the
+    scene's tables (``fourier``, ``has_hair``) come from the first."""
+    out = {}
+    for f in fields(BsdfParams):
+        vals = [getattr(q, f.name) for q in ps]
+        out[f.name] = (fn(*vals) if isinstance(vals[0], torch.Tensor)
+                       else vals[0])
+    return BsdfParams(**out)
+
+
+def concat_params(ps) -> BsdfParams:
+    """The lanes of several BsdfParams, concatenated in order."""
+    return map_params(lambda *xs: torch.cat(xs), *ps)
+
+
+def select_params(mask, a: BsdfParams, b: BsdfParams) -> BsdfParams:
+    """a where mask (N,), else b."""
+    return map_params(lambda x, y: torch.where(
+        mask.reshape(mask.shape + (1,) * (x.dim() - 1)), x, y), a, b)
 
 
 def roughness_to_alpha(rough):

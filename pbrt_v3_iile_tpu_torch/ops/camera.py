@@ -391,6 +391,68 @@ def camera_position(cam: Camera):
 
 
 # ---------------------------------------------------------------------------
+# Camera importance of the perspective pinhole (light tracing: BDPT's t=1)
+# ---------------------------------------------------------------------------
+
+def _persp_film_area(cam: Camera):
+    """The film's area on the camera-space z = 1 plane (the A of the
+    perspective camera's importance; perspective.cpp's constructor)."""
+    dev = cam.raster_to_camera.device
+    corners = torch.tensor([[0.0, 0.0, 0.0],
+                            [float(cam.resolution[0]), float(cam.resolution[1]),
+                             0.0]], device=dev)
+    pc = _apply44_point(cam.raster_to_camera, corners)
+    pc = pc / pc[:, 2:3]
+    return torch.abs((pc[1, 0] - pc[0, 0]) * (pc[1, 1] - pc[0, 1]))
+
+
+def camera_forward(cam: Camera):
+    fwd = cam.cam_to_world[:3, 2]
+    return fwd / torch.clamp(torch.linalg.norm(fwd), min=1e-12)
+
+
+def project_to_raster(cam: Camera, p_world):
+    """World points -> (raster coordinates (N,2), on-film mask): the
+    pinhole's world-to-raster projection (perspective.cpp Sample_Wi)."""
+    w2c = torch.linalg.inv(cam.cam_to_world)
+    c2r = torch.linalg.inv(cam.raster_to_camera)
+    p_cam = _apply44_point(w2c, p_world)
+    behind = p_cam[:, 2] <= 1e-6
+    raster = _apply44_point(c2r, p_cam)[:, :2]
+    rx, ry = float(cam.resolution[0]), float(cam.resolution[1])
+    on = (~behind & (raster[:, 0] >= 0.0) & (raster[:, 0] < rx)
+          & (raster[:, 1] >= 0.0) & (raster[:, 1] < ry))
+    return raster, on
+
+
+def pdf_we_dir(cam: Camera, d_world):
+    """Directional density of the perspective camera's ray sampling
+    (perspective.cpp Pdf_We: 1 / (A cos^3), 0 outside the frustum)."""
+    A = _persp_film_area(cam)
+    cos_t = d_world @ camera_forward(cam)
+    _, on_film = project_to_raster(cam, camera_position(cam)[None, :] + d_world)
+    ok = (cos_t > 1e-6) & on_film
+    return torch.where(ok, 1.0 / torch.clamp(A * cos_t ** 3, min=1e-12), 0.0)
+
+
+def sample_wi(cam: Camera, p_ref):
+    """The direction from p_ref to the pinhole (perspective.cpp Sample_Wi
+    with lensRadius 0) -> dict(wi (N,3), we_over_pdf (N,) = We / pdf =
+    1 / (A cos^3 dist^2), raster (N,2), valid (N,), dist (N,))."""
+    to_cam = camera_position(cam)[None, :] - p_ref
+    dist = torch.sqrt(torch.clamp(torch.sum(to_cam * to_cam, dim=-1), min=1e-20))
+    wi = to_cam / dist[:, None]
+    cos_t = -wi @ camera_forward(cam)
+    raster, on_film = project_to_raster(cam, p_ref)
+    A = _persp_film_area(cam)
+    valid = (cos_t > 1e-6) & on_film
+    we_over_pdf = torch.where(
+        valid, 1.0 / torch.clamp(A * cos_t ** 3 * dist ** 2, min=1e-20), 0.0)
+    return dict(wi=wi, we_over_pdf=we_over_pdf, raster=raster, valid=valid,
+                dist=dist)
+
+
+# ---------------------------------------------------------------------------
 # Hemispheric probe cameras (batched; hemispheric.cpp)
 # ---------------------------------------------------------------------------
 

@@ -5,8 +5,9 @@ direction map), distant, infinite (constant or env map), triangle-area
 and sphere-area lights, selected by the scene's power table or by its
 spatial (per-voxel) table.  A triangle-mesh area light is one light with
 an area-weighted CDF over its triangles.  All masks, no dispatch.
-``sample_le``, ``pdf_le_dir`` and ``pdf_light_origin`` (only BDPT and
-SPPM use them) are not ported yet.
+Emission for light paths and photons (BDPT, SPPM): ``sample_le`` with
+the separated pdfs of BDPT's MIS, ``pdf_le_dir`` and
+``pdf_light_origin``.
 """
 
 from __future__ import annotations
@@ -381,6 +382,198 @@ def _projection_scale(scene, lid, w):
     inside = (z > 1e-3) & (u >= 0) & (u <= 1) & (v >= 0) & (v <= 1)
     val = _light_map_lookup(scene, scene.light_img_id[lid], u, 1.0 - v)
     return torch.where(inside[..., None], val, torch.zeros_like(val))
+
+
+@dataclass
+class LightEmission:
+    o: torch.Tensor          # (N,3) photon origin
+    d: torch.Tensor          # (N,3) photon direction, into the scene
+    beta: torch.Tensor       # (N,3) Le |cos| / (pdf_pos pdf_dir): the photon's
+                             # power before the light-selection pdf
+    valid: torch.Tensor      # (N,)
+    le: torch.Tensor         # (N,3) emitted radiance or intensity
+    n_l: torch.Tensor        # (N,3) emission normal (= d for point-like)
+    pdf_pos: torch.Tensor    # (N,) area-measure position pdf (1 for a delta)
+    pdf_dir: torch.Tensor    # (N,) solid-angle direction pdf (1 for a delta)
+    delta_pos: torch.Tensor  # (N,) the position is a delta (point-like)
+    delta_dir: torch.Tensor  # (N,) the direction is a delta (distant)
+
+
+def sample_le(scene, light_id, u6) -> LightEmission:
+    """Light::Sample_Le (point.cpp, spot.cpp, goniometric.cpp,
+    projection.cpp: a point's uniform sphere or cone; distant.cpp and
+    infinite.cpp: a disk of the world's radius; diffuse.cpp: an
+    area-uniform point and a cosine direction).  u6 (N,6): [triangle or
+    env pick, side, position u0, u1, direction u0, u1]."""
+    N = u6.shape[0]
+    dev = u6.device
+    L_cnt = scene.light_kind.shape[0]
+    lid = torch.clamp(light_id, 0, L_cnt - 1).long()
+    g = lambda a: a[lid]
+    kind = g(scene.light_kind)
+    L = g(scene.light_L)
+    pos = g(scene.light_pos)
+    ldir = g(scene.light_dir)      # distant: towards the light
+    two_sided = g(scene.light_two_sided) > 0.5
+    u_pos, u_dir = u6[:, 2:4], u6[:, 4:6]
+    wr = scene.world_radius
+    wc = 0.5 * (scene.world_min + scene.world_max)
+    is_pt = kind == LIGHT_POINT
+    is_spot = kind == LIGHT_SPOT
+    is_gon = kind == LIGHT_GONIO
+    is_prj = kind == LIGHT_PROJECTION
+    is_dist = kind == LIGHT_DISTANT
+    is_inf = kind == LIGHT_INFINITE
+    is_tri = kind == LIGHT_AREA_TRI
+    is_sph = kind == LIGHT_AREA_SPHERE
+
+    # point-like: a uniform sphere direction; spot: a uniform cone
+    d_sph = smp.uniform_sample_sphere(u_dir)
+    beta_pt = L * (4.0 * math.pi)
+    ct, cf = g(scene.light_cos_total), g(scene.light_cos_falloff)
+    tx_s, ty_s = vm.coordinate_system(ldir)
+    d_spot = vm.to_world(smp.uniform_sample_cone(u_dir, ct), tx_s, ty_s, ldir)
+    cos_sp = vm.dot(d_spot, ldir)
+    delta_f = torch.clamp((cos_sp - ct) / torch.clamp(cf - ct, min=1e-9), 0.0, 1.0)
+    falloff = torch.where(cos_sp >= cf, 1.0,
+                          torch.where(cos_sp <= ct, 0.0, (delta_f ** 2) ** 2))
+    beta_spot = L * (falloff / torch.clamp(smp.uniform_cone_pdf(ct),
+                                           min=1e-12))[:, None]
+    if scene.has_map_lights:
+        sc_gon = _gonio_scale(scene, lid, d_sph)
+        sc_prj = _projection_scale(scene, lid, d_sph)
+    else:
+        sc_gon = sc_prj = torch.ones_like(L)
+
+    # distant: a disk of the world's radius across the direction
+    v1, v2 = vm.coordinate_system(ldir)
+    cd = smp.concentric_sample_disk(u_pos)
+    o_dist = wc + wr * (cd[:, 0:1] * v1 + cd[:, 1:2] * v2) + wr * ldir
+    beta_dist = L * (math.pi * wr * wr)
+
+    # area triangle: an area-uniform point and a cosine direction
+    tri = _sample_light_triangle(scene, lid, u6[:, 0])
+    b = smp.uniform_sample_triangle(u_pos)
+    n_t = scene.ltri_ng[tri]
+    p_t = scene.ltri_p0[tri] + b[:, 0:1] * scene.ltri_e1[tri] \
+        + b[:, 1:2] * scene.ltri_e2[tri]
+    flip = two_sided & (u6[:, 1] < 0.5)
+    n_emit = torch.where(flip[:, None], -n_t, n_t)
+    w_loc = smp.cosine_sample_hemisphere(u_dir)
+    tx_t, ty_t = vm.coordinate_system(n_emit)
+    d_tri = vm.to_world(w_loc, tx_t, ty_t, n_emit)
+    area = torch.clamp(g(scene.light_area), min=1e-12)
+    # L cos / (pdf_pos pdf_dir) = L area pi; two-sided emits twice the power
+    beta_tri = L * (area * math.pi * torch.where(two_sided, 2.0, 1.0))[:, None]
+
+    # area sphere: a uniform surface point and a cosine direction
+    sph = torch.clamp(g(scene.light_sphere), 0, scene.sph_center.shape[0] - 1).long()
+    c_s, r_s = scene.sph_center[sph], scene.sph_radius[sph]
+    n_s = smp.uniform_sample_sphere(u_pos)
+    p_s = c_s + r_s[:, None] * n_s
+    tx_p, ty_p = vm.coordinate_system(n_s)
+    d_sphl = vm.to_world(w_loc, tx_p, ty_p, n_s)
+    beta_sphl = L * (4.0 * math.pi * math.pi * r_s * r_s)[:, None]
+
+    # infinite: the env distribution's (or a uniform) direction, the origin
+    # on the world-bounding disk behind it
+    wi_inf = smp.uniform_sample_sphere(u_dir)
+    pdf_inf = torch.full((N,), smp.INV_4PI, device=dev)
+    le_inf = L
+    if scene.has_env_map > 0:
+        wi_e, pdf_e, li_e = _sample_env_map(scene, u_dir)
+        use_env = light_id == scene.env_light_id
+        wi_inf = torch.where(use_env[:, None], wi_e, wi_inf)
+        pdf_inf = torch.where(use_env, pdf_e, pdf_inf)
+        le_inf = torch.where(use_env[:, None], li_e, L)
+    v1i, v2i = vm.coordinate_system(wi_inf)
+    o_inf = wc + wr * (cd[:, 0:1] * v1i + cd[:, 1:2] * v2i) + wr * wi_inf
+    beta_inf = le_inf * (math.pi * wr * wr / torch.clamp(pdf_inf, min=1e-12))[:, None]
+
+    def sel3(*pairs, default):
+        out = default
+        for m, v in pairs:
+            out = torch.where(m[:, None], v, out)
+        return out
+
+    o = sel3((is_pt | is_spot | is_gon | is_prj, pos), (is_dist, o_dist),
+             (is_inf, o_inf), (is_tri, p_t), (is_sph, p_s), default=pos)
+    d = sel3((is_pt | is_gon | is_prj, d_sph), (is_spot, d_spot),
+             (is_dist, -ldir), (is_inf, -wi_inf), (is_tri, d_tri),
+             (is_sph, d_sphl), default=d_sph)
+    beta = sel3((is_pt, beta_pt), (is_spot, beta_spot),
+                (is_gon, beta_pt * sc_gon), (is_prj, beta_pt * sc_prj),
+                (is_dist, beta_dist), (is_inf, beta_inf), (is_tri, beta_tri),
+                (is_sph, beta_sphl), default=beta_pt)
+    valid = ((light_id >= 0) & (light_id < scene.n_lights)
+             & (vm.luminance(torch.abs(beta)) > 0.0))
+    le = sel3((is_pt, L), (is_spot, L * falloff[:, None]), (is_gon, L * sc_gon),
+              (is_prj, L * sc_prj), (is_dist, L), (is_inf, le_inf),
+              (is_tri, L), (is_sph, L), default=L)
+    n_emit_out = sel3((is_tri, n_emit), (is_sph, n_s), default=d)
+    ones = torch.ones(N, device=dev)
+    inv_disk = 1.0 / max(math.pi * wr * wr, 1e-12)
+    pdf_pos = torch.where(
+        is_tri, 1.0 / area,
+        torch.where(is_sph, 1.0 / torch.clamp(4.0 * math.pi * r_s * r_s, min=1e-12),
+                    torch.where(is_dist | is_inf, inv_disk, ones)))
+    cos_emit = torch.where(is_tri | is_sph, vm.absdot(d, n_emit_out), ones)
+    pdf_dir = torch.where(
+        is_tri | is_sph, smp.cosine_hemisphere_pdf(cos_emit),
+        torch.where(is_pt | is_gon | is_prj, smp.INV_4PI,
+                    torch.where(is_spot, smp.uniform_cone_pdf(ct),
+                                torch.where(is_inf, pdf_inf, ones))))
+    return LightEmission(o=o, d=d, beta=beta, valid=valid, le=le, n_l=n_emit_out,
+                         pdf_pos=pdf_pos, pdf_dir=pdf_dir,
+                         delta_pos=is_pt | is_spot | is_gon | is_prj,
+                         delta_dir=is_dist)
+
+
+def pdf_le_dir(scene, light_id, n_l, w):
+    """Solid-angle pdf of a light emitting towards w from a point with
+    normal n_l (the direction half of diffuse.cpp, point.cpp, spot.cpp
+    Pdf_Le); 0 for a delta direction (distant)."""
+    lid = light_id.long()
+    g = lambda a: a[lid]
+    kind = g(scene.light_kind)
+    two_sided = g(scene.light_two_sided) > 0.5
+    cos_w = vm.dot(n_l, w)
+    pdf_area = torch.where(two_sided,
+                           0.5 * smp.cosine_hemisphere_pdf(torch.abs(cos_w)),
+                           torch.where(cos_w > 0.0,
+                                       smp.cosine_hemisphere_pdf(cos_w), 0.0))
+    ct = g(scene.light_cos_total)
+    cos_sp = vm.dot(g(scene.light_dir), w)
+    pdf_spot = torch.where(cos_sp >= ct, smp.uniform_cone_pdf(ct), 0.0)
+    pdf_inf = torch.full_like(cos_w, smp.INV_4PI)
+    if scene.has_env_map > 0:
+        pdf_inf = torch.where(light_id == scene.env_light_id,
+                              _env_dir_pdf(scene, -w), pdf_inf)
+    is_area = (kind == LIGHT_AREA_TRI) | (kind == LIGHT_AREA_SPHERE)
+    is_ptlike = (kind == LIGHT_POINT) | (kind == LIGHT_GONIO) | \
+        (kind == LIGHT_PROJECTION)
+    return torch.where(is_area, pdf_area,
+           torch.where(is_ptlike, smp.INV_4PI,
+           torch.where(kind == LIGHT_SPOT, pdf_spot,
+           torch.where(kind == LIGHT_INFINITE, pdf_inf, 0.0))))
+
+
+def pdf_light_origin(scene, light_id):
+    """Area-measure pdf of a light's emission origin times its selection
+    pdf (bdpt.h Vertex::PdfLightOrigin); 0 for a delta position."""
+    lid = light_id.long()
+    kind = scene.light_kind[lid]
+    area = torch.clamp(scene.light_area[lid], min=1e-12)
+    sph = torch.clamp(scene.light_sphere[lid], 0, scene.sph_center.shape[0] - 1).long()
+    r_s = scene.sph_radius[sph]
+    inv_disk = 1.0 / max(math.pi * scene.world_radius ** 2, 1e-12)
+    pdf_pos = torch.where(
+        kind == LIGHT_AREA_TRI, 1.0 / area,
+        torch.where(kind == LIGHT_AREA_SPHERE,
+                    1.0 / torch.clamp(4.0 * math.pi * r_s * r_s, min=1e-12),
+                    torch.where(kind == LIGHT_DISTANT, inv_disk,
+                                torch.zeros_like(area))))
+    return pdf_pos * scene.light_pdf[lid]
 
 
 def finite_light_distribution(scene):

@@ -13,7 +13,9 @@ same on a soup with leaves of 6 and 10 triangles.  The kd-tree kernel
 (K3) against intersect_kd_plain and the BVH kernel's motion variant
 against bvh_traverse_wide_plain with times: t, prim, barycentrics
 identical on a soup and on atrium (scenes/atrium_motion.pbrt for the
-motion variant; at time 0 it equals the static kernel).  GPU
+motion variant; at time 0 it equals the static kernel).  The photon
+gather's range query (K4) against photon_query_plain: the slot table, M
+and dropped identical.  GPU
 renders against the CPU render: test_golden's criterion.  The train step on
 the card against the CPU step: see its docstring.
 """
@@ -495,3 +497,63 @@ def test_motion_kernel_at_time_0_equals_static_kernel(gpu_scene):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _photon_query_inputs(dev):
+    """Visible points and a photon map with an overfull cell, negative cell
+    coordinates and two neighbour cells of one point in one bucket."""
+    from pbrt_v3_iile_tpu_torch.integrators import sppm
+
+    rng = np.random.default_rng(4)
+    N, P = 4096, 4096
+    origin = torch.tensor([-2.0, -2.0, -2.0], device=dev)
+    radius = torch.as_tensor(rng.uniform(0.05, 0.2, N), dtype=torch.float32,
+                             device=dev)
+    radius[0] = 0.2
+    cell = 2.0 * radius.max()
+    vp_p = rng.uniform(-3.0, 3.0, (N, 3)).astype(np.float32)
+    ph_p = rng.uniform(-3.0, 3.0, (P, 3)).astype(np.float32)
+    vp_p[1] = (1.3, 0.7, -0.4)
+    ph_p[:200] = vp_p[1] + rng.uniform(-0.05, 0.05, (200, 3))
+    ph_p[200:3000] = rng.uniform(-3.0, -2.0, (2800, 3))
+    m = 4096
+    ic = torch.stack(torch.meshgrid(*[torch.arange(-64, 64)] * 3, indexing="ij"),
+                     -1).reshape(-1, 3).to(torch.int32)
+    h0 = sppm._hash_cells(ic, m)
+    for off in ([1, 1, 0], [0, 1, 1], [1, 0, 1], [1, 1, 1]):
+        hit = torch.nonzero(h0 == sppm._hash_cells(
+            ic + torch.tensor(off, dtype=torch.int32), m))[:, 0]
+        if hit.numel():
+            break
+    c = ic[hit[0]].numpy()
+    border = (origin.cpu().numpy()
+              + (c + np.where(np.array(off) > 0, 1.0, 0.5)) * float(cell))
+    vp_p[7] = border
+    ph_p[3000:3100] = border + rng.uniform(-0.1, 0.1, (100, 3))
+    vp = dict(p=torch.as_tensor(vp_p, device=dev),
+              valid=torch.as_tensor(rng.random(N) > 0.05, device=dev))
+    ph_p = torch.as_tensor(ph_p, device=dev)
+    ph_ok = torch.as_tensor(rng.random(P) > 0.1, device=dev)
+    m_, h_sorted, order = sppm.photon_map(ph_p, ph_ok, origin, cell)
+    assert m_ == m
+    lo_c, hi_c = sppm.cell_ranges(vp, radius, origin, cell)
+    return (lo_c, hi_c, vp["valid"], vp["p"], radius * radius, h_sorted,
+            ph_p[order].contiguous(), m)
+
+
+def test_photon_gather_kernel_matches_plain():
+    """K4 against its plain version: the slot table, M and dropped identical
+    on random points and photons with an overfull cell, negative cells and
+    a shared bucket."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from pbrt_v3_iile_tpu_torch.ops import photon_kernel as K4
+
+    args = _photon_query_inputs(torch.device("cuda"))
+    got = K4.photon_query_cuda(*args)
+    want = K4.photon_query_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("slots", "M", "dropped"), got, want):
+        assert torch.equal(a, b), name
+    assert int(got[2].sum()) > 0 and int(got[1].max()) > 32
+    assert (args[0] < 0).any()

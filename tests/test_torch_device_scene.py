@@ -66,8 +66,9 @@ def test_unported_features_raise():
     """The device build ports every feature of the reference's scenes
     (motion blur and the kd-tree since the cameras-and-aggregates slice:
     a scene that asks for the kd-tree gets it, one without it the
-    reference's placeholder leaf); what stays unported raises: the
-    integrators of ROADMAP Queue 1 item 9."""
+    reference's placeholder leaf); what stays unported raises: bdpt, mlt
+    and sppm configure on a plain scene, and refuse one with media (the
+    reference renders it as if the media were absent)."""
     from pbrt_v3_iile_tpu_torch.integrators import render as trender
 
     text = """
@@ -88,6 +89,16 @@ def test_unported_features_raise():
     leaves = tdev.build_leaves(sd)
     assert leaves["kd_meta"].tolist() == [3 | 1 << 2]
     assert leaves["kd_bounds"].any()
-    sd.integrator.kind = "bdpt"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        trender.make_integrator_config(sd, device="cpu")
+    fog = text.format(accel="").replace("WorldBegin", (
+        'WorldBegin\n'
+        'MakeNamedMedium "fog" "string type" "homogeneous" '
+        '"rgb sigma_a" [.1 .1 .1] "rgb sigma_s" [.1 .1 .1]\n'
+        'MediumInterface "fog" ""'))
+    sd_fog = apilib.load_scene_string(fog)
+    assert sd_fog.media
+    for kind in ("bdpt", "mlt", "sppm"):
+        sd.integrator.kind = sd_fog.integrator.kind = kind
+        cfg = trender.make_integrator_config(sd, device="cpu")
+        assert cfg.max_depth == sd.integrator.max_depth and cfg.accel == "kdtree"
+        with pytest.raises(ValueError, match="object motion or media"):
+            trender.make_integrator_config(sd_fog, device="cpu")

@@ -4,7 +4,8 @@ every module of pbrt_v3_iile_tpu_torch imports (the training modules
 ``ml/{losses,dataset,train,evalstats}``, ``utils/metrics`` and
 ``cli/train``, and ``integrators/ao``, ``scene/ptex``,
 ``utils/{stats,config}`` among them), a 4x4 scene parsed by the port's
-own ``scene/api.py`` renders (also on the kd-tree), a scene with camera
+own ``scene/api.py`` renders (also on the kd-tree, and with ``bdpt``,
+``sppm``, ``mlt`` and ``grad`` at 8x8), a scene with camera
 and object motion and one through a realistic lens render, a scene
 without a Sampler line (pbrt's
 default, halton), with a procedural texture and a goniometric light,
@@ -40,7 +41,8 @@ assert {"pbrt_v3_iile_tpu_torch." + m for m in (
     "ml.losses", "ml.dataset", "ml.train", "ml.evalstats", "utils.metrics",
     "cli.train", "integrators.ao", "scene.ptex", "utils.stats",
     "utils.config", "ops.hair", "ops.fourierbsdf", "ops.kdtree",
-    "ops.kd_kernel")} <= set(names)
+    "ops.kd_kernel", "integrators.bdpt", "integrators.mlt",
+    "integrators.sppm", "integrators.grad", "ops.photon_kernel")} <= set(names)
 from pbrt_v3_iile_tpu_torch.scene import api as apilib
 from pbrt_v3_iile_tpu_torch.integrators import render
 sd = apilib.load_scene_string('''
@@ -162,6 +164,21 @@ assert (cfg3.volumetric and cfg3.grid_media and cfg3.has_hair
         and cfg3.has_subsurface)
 img3, _ = render.render(sd3, spp=2, device="cpu")
 assert img3.shape == (6, 6, 3) and np.isfinite(img3).all() and img3.mean() > 0
+for kind in ("bdpt", "sppm"):
+    sd.integrator.kind = kind
+    img4, _ = render.render(sd, spp=4, device="cpu")
+    assert img4.shape == (8, 8, 3) and np.isfinite(img4).all() and img4.mean() > 0
+from pbrt_v3_iile_tpu_torch.integrators import grad, mlt
+sd.integrator.kind = "mlt"
+img5, _ = mlt.render_mlt(sd, mutations_per_pixel=4, device="cpu",
+                         cfg=mlt.MLTConfig(max_depth=2, n_chains=64,
+                                           n_bootstrap=128))
+assert np.isfinite(img5).all() and img5.mean() > 0
+sd.integrator.kind = "path"
+scene6, cam6 = render.build(sd, "cpu")
+img6, g6 = grad.make_image_and_grad_fn(sd, spp=1, device="cpu")(
+    scene6, cam6, (0, 0))
+assert set(g6) == set(grad.DIFF_FIELDS) and float(g6["mat_kd"].abs().sum()) > 0
 import torch
 from pbrt_v3_iile_tpu_torch.ml import dataset, train
 from pbrt_v3_iile_tpu_torch.ops import threefry
