@@ -126,13 +126,17 @@ Phases (one line each):
      one profiled pass each with the delta- and ratio-tracking loops'
      calls, launches, device and host ms;
   12. cameras and aggregates (run after phase 11 and before phase 8's
-     profiler sessions): (a) K2's motion variant against its plain
-     version (bvh_traverse_wide_plain with times) on two 65,536-ray waves
+     profiler sessions): (a) K2's motion variant on the scene's motion
+     tables (a BVH over the static triangles, one over the moving ones
+     per keyframe segment) against its plain version
+     (bvh_traverse_motion_plain) on two 65,536-ray waves
      of scenes/atrium_motion.pbrt at 512^2 (primary rays with their
      shutter times, a cosine bounce from their hits), closest-hit and
      any-hit, t, prim and barycentrics identical, and against the
-     keyframe-lerping binary walker (phase 4's tolerances); at time 0 on
-     atrium against the static K2, identical; K3 against
+     keyframe-lerping binary walker over the union BVH (phase 4's
+     tolerances, the differing rays counted); on atrium given as two
+     equal keyframes (every triangle static) against the static K2,
+     identical; K3 against
      intersect_kd_plain on phase 4's atrium waves, identical, and
      against K2 (prims on >= 99.9%); (b) atrium_motion on bvh, atrium
      with ``Accelerator "kdtree"``, and atrium_lens.pbrt (the realistic
@@ -334,7 +338,8 @@ def compare_hits(name, ta, pa, tb, pb, b1a=None, b2a=None, b1b=None, b2b=None,
     terr = np.abs(ta - tb)[both]
     trel = float((terr / np.maximum(np.abs(tb[both]), 1e-6)).max()) if both.any() else 0.0
     t_ok = bool((terr <= T_RTOL * np.abs(tb[both]) + T_ATOL).all())
-    out = dict(agree=frac, hits=int((pa >= 0).sum()), t_max_rel=trel,
+    out = dict(agree=frac, differing=int((~same).sum()),
+               hits=int((pa >= 0).sum()), t_max_rel=trel,
                t_max_abs=float(terr.max()) if both.any() else 0.0)
     check(frac >= agree_min, f"{name}: prim agreement {frac} < {agree_min}")
     check(t_ok or agree_min < PRIM_AGREE,
@@ -1414,7 +1419,14 @@ def cameras_phase(dev, smi, K1, K2, K3, atrium, waves):
          sub_keyframes=int(steps.shape[0]), triangles=int(steps.shape[1]),
          wide_nodes=scene_m.bvh4_nodes.shape[0], stack_bound=scene_m.bvh4_stack,
          steps_mbytes=steps.nbytes / 1e6,
-         ns_steps_mbytes=scene_m.tri_ns_steps.nbytes / 1e6)
+         ns_steps_mbytes=scene_m.tri_ns_steps.nbytes / 1e6,
+         static_triangles=scene_m.mot_static_tris.shape[0],
+         moving_triangles=scene_m.mot_moving_tris.shape[1],
+         motion_wide_nodes=scene_m.mot_nodes.shape[0],
+         motion_stack_bound=scene_m.mot_stack,
+         motion_tables_mbytes=(scene_m.mot_nodes.nbytes
+                               + scene_m.mot_static_tris.nbytes
+                               + scene_m.mot_moving_tris.nbytes) / 1e6)
     check(steps.shape[0] == 7, f"atrium_motion has {steps.shape[0]} sub-keyframes")
 
     # (a) the motion waves: the primary rays of the film's first 65,536
@@ -1435,25 +1447,25 @@ def cameras_phase(dev, smi, K1, K2, K3, atrium, waves):
               "bounce": (o_b, d_b, torch.where(hp.valid, 1e30, -1.0))}
 
     def k2m(o, d, tm, any_hit=False):
-        return K2.bvh_traverse_cuda(scene_m.bvh4_nodes, scene_m.bvh4_stack,
-                                    scene_m.tris_packed, o, d, tm,
-                                    any_hit=any_hit, time=time_p, tris_steps=steps)
+        return K2.bvh_traverse_motion_cuda(scene_m, o, d, tm, time_p,
+                                           any_hit=any_hit)
 
-    def k2m_plain(o, d, tm, any_hit=False):
-        return K2.bvh_traverse_wide_plain(scene_m.bvh4_nodes, scene_m.tris_packed,
-                                          o, d, tm, any_hit=any_hit,
-                                          time=time_p, tris_steps=steps)
+    def k2m_plain(o, d, tm, any_hit=False, work=None):
+        return K2.bvh_traverse_motion_plain(scene_m, o, d, tm, time_p,
+                                            any_hit=any_hit, work=work)
 
     k2m_err = k3_err = 0.0
     plain_ms = {}   # the plain versions' ms on their comparison calls
     wm = {}   # the keyframe-lerping walker's work on the bounce wave
+    ws = {}   # ... and the motion tables' walk (the plain version's)
     for wname in ("primary", "bounce"):
         for any_hit in (False, True):
             o, d, tm = mwaves[wname]
             tag = f"{wname}{'_anyhit' if any_hit else ''}"
             got = k2m(o, d, tm, any_hit)
             want, plain_ms[f"motion_{tag}"] = timed_once(
-                lambda: k2m_plain(o, d, tm, any_hit))
+                lambda: k2m_plain(o, d, tm, any_hit,
+                                  ws if tag == "bounce" else None))
             same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
             t_abs = float((got[0] - want[0]).abs().max())
             line(f"K2_motion_vs_wide_plain_{tag}", t_prim_b1_b2_identical=same,
@@ -1471,13 +1483,15 @@ def cameras_phase(dev, smi, K1, K2, K3, atrium, waves):
             else:
                 compare_hits(f"K2_motion_vs_walker_{wname}", got[0], got[1],
                              ref.t, ref.prim, got[2], got[3], ref.b1, ref.b2)
-    # at time 0 on atrium (its triangles as two equal keyframes) the motion
-    # variant is the static kernel
+    # atrium's triangles as two equal keyframes are all static: the
+    # motion variant walks the static K2's BVH and must equal it
     o, d, tm = waves["bounce"]
-    two = scene_a.tris_packed[None].expand(2, -1, -1).contiguous()
-    got = K2.bvh_traverse_cuda(scene_a.bvh4_nodes, scene_a.bvh4_stack,
-                               scene_a.tris_packed, o, d, tm,
-                               time=torch.zeros_like(tm), tris_steps=two)
+    tris_a = scene_a.tris_packed.cpu().numpy()
+    two = K2.motion_split(K2.build_motion_split_np(
+        np.stack([tris_a, tris_a]), scene_a.nodes_packed.cpu().numpy()), dev)
+    check(two.mot_static_tris.shape[0] == tris_a.shape[0],
+          "atrium as two equal keyframes has a moving triangle")
+    got = K2.bvh_traverse_motion_cuda(two, o, d, tm, torch.zeros_like(tm))
     want = K2.bvh_traverse_cuda(scene_a.bvh4_nodes, scene_a.bvh4_stack,
                                 scene_a.tris_packed, o, d, tm)
     torch.cuda.synchronize()
@@ -1602,7 +1616,7 @@ def cameras_phase(dev, smi, K1, K2, K3, atrium, waves):
     line("cameras_phase", wall_seconds=time.time() - t_phase)
     return dict(launches_128=launches_128, per_pass=per_pass, k2m_err=k2m_err,
                 k3_err=k3_err, plain_ms=plain_ms, motion_work=wm,
-                motion=(scene_m, mwaves["bounce"], k2m))
+                motion_split_work=ws, motion=(scene_m, mwaves["bounce"], k2m))
 
 
 def camera_kernel_timing(cams, scene, waves, K2, K3, isect, kdtree, smi):
@@ -1610,10 +1624,14 @@ def camera_kernel_timing(cams, scene, waves, K2, K3, isect, kdtree, smi):
     (atrium's for K3, atrium_motion's for K2-motion): ms by CUDA events
     over 20 wrapper calls, the plain versions' ms on phase 12's comparison
     calls, and each bound from the work these rays need (K3: its plain
-    version's node visits and triangle tests; K2-motion: the
-    keyframe-lerping binary walker's, counted in phase 12, as K2's bound
-    keeps the binary walker's yardstick) against the bytes of the tree,
-    the triangles and the rays.  The launches are not counted."""
+    version's node visits and triangle tests, the visits also by kind;
+    K2-motion: its plain version's walk of the motion tables, counted in
+    phase 12, a moving test with its lerp) against the bytes of the tree,
+    the triangles and the rays.  K2-motion's bound by its first design's
+    yardstick (the keyframe-lerping binary walker's work over the union
+    BVH, and the bytes of that BVH and all sub-keyframes) is printed
+    beside it as ``motion_bound_ms_union_yardstick``, so that its times
+    stay comparable with that design's.  The launches are not counted."""
     saved = (K2.LAUNCHES_MOTION, K3.LAUNCHES)
     o, d, tm = waves["bounce"]
     scene_m, (om, dm, tmm), k2m = cams["motion"]
@@ -1625,22 +1643,37 @@ def camera_kernel_timing(cams, scene, waves, K2, K3, isect, kdtree, smi):
         motion_ms=cuda_ms(lambda: k2m(om, dm, tmm), 20),
         motion_anyhit_ms=cuda_ms(lambda: k2m(om, dm, tmm, True), 20),
         motion_plain_ms=cams["plain_ms"]["motion_bounce"])
-    work, wm = {}, cams["motion_work"]
+    work, wm, ws = {}, cams["motion_work"], cams["motion_split_work"]
     kdtree.intersect_kd_plain(scene, o, d, tm, work=work)
     kd_ops = work["nodes"] * KD_NODE_OPS + work["tris"] * MOLLER_OPS
     kd_bytes = (scene.kd_split.nbytes + scene.kd_meta.nbytes
                 + scene.kd_offset.nbytes + scene.kd_prims.nbytes
                 + scene.tris_packed.nbytes + o.shape[0] * (28 + 16))
     out["kd_bound_ms"], out["kd_bound_by"] = bound(kd_ops, kd_bytes)
-    m_ops = wm["nodes"] * NODE_OPS + wm["tris"] * (MOLLER_OPS + LERP_OPS)
-    m_bytes = (scene_m.nodes_packed.nbytes + scene_m.tris_steps_packed.nbytes
-               + om.shape[0] * (28 + 16 + 4))
+    ray_bytes = om.shape[0] * (28 + 16 + 4)
+    m_ops = (ws["nodes"] * NODE_OPS + ws["tris"] * MOLLER_OPS
+             + ws["moving_tris"] * LERP_OPS)
+    m_bytes = (scene_m.mot_nodes.nbytes + scene_m.mot_roots.nbytes
+               + scene_m.mot_static_tris.nbytes
+               + scene_m.mot_moving_tris.nbytes + ray_bytes)
     out["motion_bound_ms"], out["motion_bound_by"] = bound(m_ops, m_bytes)
+    u_ops = wm["nodes"] * NODE_OPS + wm["tris"] * (MOLLER_OPS + LERP_OPS)
+    u_bytes = (scene_m.nodes_packed.nbytes + scene_m.tris_steps_packed.nbytes
+               + ray_bytes)
+    (out["motion_bound_ms_union_yardstick"],
+     out["motion_bound_by_union_yardstick"]) = bound(u_ops, u_bytes)
     line("camera_kernels_bounce_wave_65536", **out, kd_node_visits=work["nodes"],
+         kd_leaf_visits=work["leaves"], kd_culled_visits=work["culled"],
+         kd_interior_visits=work["nodes"] - work["leaves"] - work["culled"],
          kd_triangle_tests=work["tris"], kd_gflop=kd_ops / 1e9,
          kd_mbytes=kd_bytes / 1e6, motion_node_visits=wm["nodes"],
-         motion_triangle_tests=wm["tris"], motion_gflop=m_ops / 1e9,
-         motion_mbytes=m_bytes / 1e6, plain_ms_by_wave=cams["plain_ms"],
+         motion_triangle_tests=wm["tris"],
+         motion_split_node_visits=ws["nodes"],
+         motion_split_triangle_tests=ws["tris"],
+         motion_split_moving_triangle_tests=ws["moving_tris"],
+         motion_gflop=m_ops / 1e9, motion_mbytes=m_bytes / 1e6,
+         motion_union_gflop=u_ops / 1e9, motion_union_mbytes=u_bytes / 1e6,
+         plain_ms_by_wave=cams["plain_ms"],
          power=smi)
     K2.LAUNCHES_MOTION, K3.LAUNCHES = saved
     return out
@@ -2804,6 +2837,7 @@ def main():
              max_abs_err=cams["k2m_err"], ms=k_cams["motion_ms"],
              plain_ms=k_cams["motion_plain_ms"], bound_ms=k_cams["motion_bound_ms"],
              bound_by=k_cams["motion_bound_by"], library_ms=None,
+             bound_ms_union_yardstick=k_cams["motion_bound_ms_union_yardstick"],
              launches_per_pass_motion512=cams["per_pass"]["motion_bvh"][
                  "bvh_traverse_motion"]),
         dict(name="kd_traverse", route="cuda",

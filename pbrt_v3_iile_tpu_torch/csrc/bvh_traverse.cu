@@ -65,14 +65,38 @@
 // against the binary kernel it replaced; PERF.md has the readings.
 //
 // The motion variant (kMotion, the same kernel with a compile-time flag:
-// the static kernel's code is unchanged) carries object motion blur, the
-// reference's keyframe-lerping walker (pbrt_v3_iile_tpu/ops/intersect.py:56
-// with time, lerp at :111-124; an XLA while_loop, no pallas_call): each ray
-// has a time in [0, 1], and each triangle it tests is rows seg*T+pid and
-// (seg+1)*T+pid of the (M, T, 12) sub-keyframe stack lerped at tl, with
-// tf = time*(M-1), seg = clip(int(tf), 0, M-2), tl = tf - seg, in the plain
-// version's order (bvh_traverse_wide_plain with time).  The BVH's boxes
-// cover the whole shutter.  A test reads two triangles instead of one.
+// the static kernel's code and arithmetic are unchanged) carries object
+// motion blur, the reference's keyframe-lerping walker
+// (pbrt_v3_iile_tpu/ops/intersect.py:56 with time, lerp at :111-124; an XLA
+// while_loop, no pallas_call): each ray has a time in [0, 1], with
+// tf = time*(M-1), seg = clip(int(tf), 0, M-2), tl = tf - seg.  Its first
+// design walked K2's body over one BVH built around the union of all M
+// sub-keyframes: on atrium_motion three shapes (26% of the triangles) turn
+// or move, their boxes cover the whole sweep, the build around them
+// degrades, and the 65,536-ray bounce wave made 28.6 triangle tests a ray
+// (2.3 on the static atrium), each reading and lerping two rows, also for
+// the 74% of triangles that never move: ~100x its bound.  Here the host
+// (ops/intersect_kernel.py::build_motion_split_np) splits the triangles:
+//   static  every sub-keyframe row bit-equal: one 4-wide BVH from node 0
+//           over them, whose leaves index a (S, 12) table read as the
+//           static kernel reads tris (no lerp);
+//   moving  per keyframe segment s, a 4-wide BVH from roots[s] over the
+//           moving triangles boxed over keyframes s and s+1 (padded for
+//           the lerp's rounding), whose leaves index segment s's part of
+//           a (M-1, V, 24) table: the two keyframe rows of a triangle
+//           side by side, 96 contiguous bytes, lerped r0 + tl (r1 - r0).
+// Column 9 of each row holds the triangle's prim id in the scene's BVH
+// order (int bits), so the result and the (t, prim) key rule are the
+// static kernel's.  A ray walks the static BVH, then (unless any-hit
+// found a hit) the moving BVH of its segment, bounded by the (t, prim)
+// the first walk left; the least (t, prim) over both is the union walk's
+// result.  Persistent warps, refill, the warp-spread tests and the stack
+// ring are the static kernel's; a lane's walk is in the warp's shared
+// seg[] (-1 on the static BVH), so one step may mix lanes of both walks.
+// The plain version is bvh_traverse_motion_plain, in this order.  Its
+// bound on the H100 (chip_smoke.py phase 8) is the bytes of these tables
+// (23.9 MB on atrium_motion) and of the rays, ~8 us; the first design's
+// ~100x was by the union BVH's yardstick (39.2 MB, ~12 us).
 //
 // Built with --fmad=false so each product and sum rounds as in the plain
 // PyTorch versions.
@@ -107,8 +131,8 @@ struct WarpTests {
   float4 ray_d[32];                 // d, prim at the step's start (bits)
   float2 uv[32];
 };
-// ... and in the motion variant each lane's keyframe segment and lerp
-// parameter
+// ... and in the motion variant each lane's keyframe segment (-1 while it
+// walks the static BVH) and lerp parameter
 struct WarpTestsMotion : WarpTests {
   int seg[32];
   float tl[32];
@@ -134,13 +158,15 @@ __device__ __forceinline__ unsigned long long hit_key(float t, int prim) {
   return ((unsigned long long)__float_as_uint(t) << 32) | (unsigned)prim;
 }
 
-// Triangle pid at keyframe segment seg, lerp parameter tl, of the (M, T,
-// 12) stack: r0 + tl * (r1 - r0) per float, as the plain version.
-__device__ __forceinline__ Tri lerp_tri(const float4* __restrict__ steps,
-                                        int n_tris, int seg, float tl,
-                                        int pid) {
-  const Tri a = load_tri(steps, seg * n_tris + pid);
-  const Tri b = load_tri(steps, (seg + 1) * n_tris + pid);
+// Moving triangle pid of segment seg, lerp parameter tl, of the (M-1, V,
+// 24) table (its rows at keyframes seg and seg+1): r0 + tl * (r1 - r0) per
+// float, as the plain version; its prim id in id.
+__device__ __forceinline__ Tri lerp_tri(const float4* __restrict__ moving,
+                                        int n_moving, int seg, float tl,
+                                        int pid, int& id) {
+  const int row = 2 * (seg * n_moving + pid);
+  const Tri a = load_tri_id(moving, row, id);
+  const Tri b = load_tri(moving, row + 1);
   return Tri{a.p0x + tl * (b.p0x - a.p0x), a.p0y + tl * (b.p0y - a.p0y),
              a.p0z + tl * (b.p0z - a.p0z), a.e1x + tl * (b.e1x - a.e1x),
              a.e1y + tl * (b.e1y - a.e1y), a.e1z + tl * (b.e1z - a.e1z),
@@ -148,8 +174,9 @@ __device__ __forceinline__ Tri lerp_tri(const float4* __restrict__ steps,
              a.e2z + tl * (b.e2z - a.e2z)};
 }
 
-// tris: the (T, 12) table, or in the motion variant the (M, T, 12)
-// sub-keyframes with time (N,), n_steps = M and n_tris = T.
+// tris: the (T, 12) table, or in the motion variant the static triangles
+// (S, 12) with the moving ones (M-1, V, 24), each segment's root, time
+// (N,), n_steps = M and n_moving = V.
 template <bool kMotion>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 bvh4_traverse_kernel(const float4* __restrict__ wide,
@@ -160,7 +187,9 @@ bvh4_traverse_kernel(const float4* __restrict__ wide,
                      float* __restrict__ b1_out, float* __restrict__ b2_out,
                      int n, int any_hit, int* __restrict__ counters,
                      int2* __restrict__ spill, const float* __restrict__ time,
-                     int n_steps, int n_tris) {
+                     const float4* __restrict__ moving,
+                     const int* __restrict__ roots, int n_steps,
+                     int n_moving) {
   // counters[0]: the next ray to hand out; counters[1]: blocks finished.
   // Both are 0 at the launch, and the last block to finish zeroes them.
   int* next_ray = counters;
@@ -185,6 +214,7 @@ bvh4_traverse_kernel(const float4* __restrict__ wide,
   int prim = -1, node = 0, sp = 0, spilled = 0;
   int seg = 0;       // motion: the ray's keyframe segment
   float tl = 0.f;    // ... and lerp parameter
+  bool on_static = false;  // motion: the lane walks the static BVH
 
   while (true) {
     // ---- refill: the idle lanes take the next consecutive rays ----
@@ -222,6 +252,7 @@ bvh4_traverse_kernel(const float4* __restrict__ wide,
             seg = (int)tf;
             seg = seg < 0 ? 0 : (seg > n_steps - 2 ? n_steps - 2 : seg);
             tl = tf - (float)seg;
+            on_static = true;
           }
         } else {  // 0 < t' < t_max is impossible: a miss
           t_out[r] = tm;
@@ -297,7 +328,7 @@ bvh4_traverse_kernel(const float4* __restrict__ wide,
         wt.ray_d[lane] = make_float4(dx, dy, dz, __int_as_float(prim));
         wt.key[lane] = key0;
         if constexpr (kMotion) {
-          wt.seg[lane] = seg;
+          wt.seg[lane] = on_static ? -1 : seg;
           wt.tl[lane] = tl;
         }
 #pragma unroll
@@ -323,16 +354,22 @@ bvh4_traverse_kernel(const float4* __restrict__ wide,
           const float4 ro = wt.ray_o[own];
           const float4 rd = wt.ray_d[own];
           Tri tri;
-          if constexpr (kMotion)
-            tri = lerp_tri(tris, n_tris, wt.seg[own], wt.tl[own], pid);
-          else
+          int id = pid;  // the prim id of the key
+          if constexpr (kMotion) {
+            const int sg = wt.seg[own];
+            if (sg < 0)
+              tri = load_tri_id(tris, pid, id);
+            else
+              tri = lerp_tri(moving, n_moving, sg, wt.tl[own], pid, id);
+          } else {
             tri = load_tri(tris, pid);
+          }
           // below the owner's (t, prim) at the step's start: a lower key
           pass = moller_tri(tri, ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, tt, u,
                             v) &&
-                 (tt < ro.w || (tt == ro.w && pid < __float_as_int(rd.w)));
+                 (tt < ro.w || (tt == ro.w && id < __float_as_int(rd.w)));
           if (pass) {
-            kk = hit_key(tt, pid);
+            kk = hit_key(tt, id);
             atomicMin(&wt.key[own], kk);
           }
         }
@@ -403,7 +440,12 @@ bvh4_traverse_kernel(const float4* __restrict__ wide,
         if (__int_as_float(e.y) < t) next = e.x;
       }
       if (next < 0) {
-        done = true;
+        if (kMotion && on_static) {  // the static BVH is done (its stack
+          on_static = false;         // is empty): the segment's moving one
+          node = __ldg(roots + seg);
+        } else {
+          done = true;
+        }
       } else {
         node = next;
       }
@@ -465,7 +507,8 @@ template <bool kMotion>
 int launch(const void* wide, const void* tris, const void* o, const void* d,
            const void* t_max, void* t_out, void* prim_out, void* b1_out,
            void* b2_out, int n, int any_hit, void* work, void* stream,
-           const void* time, int n_steps, int n_tris) {
+           const void* time, const void* moving, const void* roots,
+           int n_steps, int n_moving) {
   if (n <= 0) return 0;
   const int mb = max_blocks<kMotion>();
   if (mb <= 0) return -mb;
@@ -476,7 +519,8 @@ int launch(const void* wide, const void* tris, const void* o, const void* d,
           (const float4*)wide, (const float4*)tris, (const float*)o,
           (const float*)d, (const float*)t_max, (float*)t_out, (int*)prim_out,
           (float*)b1_out, (float*)b2_out, n, any_hit, (int*)work,
-          (int2*)work + 1, (const float*)time, n_steps, n_tris);
+          (int2*)work + 1, (const float*)time, (const float4*)moving,
+          (const int*)roots, n_steps, n_moving);
   return (int)cudaGetLastError();
 }
 
@@ -502,20 +546,23 @@ extern "C" int bvh_traverse(const void* wide, const void* tris, const void* o,
                             void* prim_out, void* b1_out, void* b2_out, int n,
                             int any_hit, void* work, void* stream) {
   return launch<false>(wide, tris, o, d, t_max, t_out, prim_out, b1_out,
-                       b2_out, n, any_hit, work, stream, nullptr, 0, 0);
+                       b2_out, n, any_hit, work, stream, nullptr, nullptr,
+                       nullptr, 0, 0);
 }
 
-// The motion variant: tris_steps (n_steps, n_tris, 12), time (n,) in
-// [0, 1]; the workspace as above, sized by
-// bvh_traverse_motion_spill_entries.
-extern "C" int bvh_traverse_motion(const void* wide, const void* tris_steps,
-                                   const void* o, const void* d,
-                                   const void* t_max, const void* time,
-                                   void* t_out, void* prim_out, void* b1_out,
-                                   void* b2_out, int n, int any_hit,
-                                   int n_steps, int n_tris, void* work,
-                                   void* stream) {
-  return launch<true>(wide, tris_steps, o, d, t_max, t_out, prim_out, b1_out,
-                      b2_out, n, any_hit, work, stream, time, n_steps,
-                      n_tris);
+// The motion variant on build_motion_split_np's tables: wide (its nodes:
+// the static BVH from 0, segment s's from roots[s]), static_tris (S, 12),
+// moving_tris (n_steps - 1, n_moving, 24), time (n,) in [0, 1]; the
+// workspace as above, sized by bvh_traverse_motion_spill_entries.
+extern "C" int bvh_traverse_motion(const void* wide, const void* roots,
+                                   const void* static_tris,
+                                   const void* moving_tris, const void* o,
+                                   const void* d, const void* t_max,
+                                   const void* time, void* t_out,
+                                   void* prim_out, void* b1_out, void* b2_out,
+                                   int n, int any_hit, int n_steps,
+                                   int n_moving, void* work, void* stream) {
+  return launch<true>(wide, static_tris, o, d, t_max, t_out, prim_out, b1_out,
+                      b2_out, n, any_hit, work, stream, time, moving_tris,
+                      roots, n_steps, n_moving);
 }

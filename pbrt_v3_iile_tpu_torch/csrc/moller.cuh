@@ -24,6 +24,17 @@ __device__ __forceinline__ Tri load_tri(const float4* __restrict__ tris,
   return Tri{r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w, r2.x};
 }
 
+// Row pid of a table of 12-float rows (p0, e1, e2, id bits, pad) that
+// carry their triangle's prim id in column 9: the triangle, and the id.
+__device__ __forceinline__ Tri load_tri_id(const float4* __restrict__ rows,
+                                           int pid, int& id) {
+  const float4 r0 = __ldg(rows + 3 * pid);
+  const float4 r1 = __ldg(rows + 3 * pid + 1);
+  const float4 r2 = __ldg(rows + 3 * pid + 2);
+  id = __float_as_int(r2.y);
+  return Tri{r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w, r2.x};
+}
+
 // True when the ray (o, d) meets the triangle at tt > 0, with (tt, u, v).
 __device__ __forceinline__ bool moller_tri(const Tri& tr, float ox, float oy,
                                            float oz, float dx, float dy,

@@ -155,6 +155,18 @@ def kd_leaves(p0, e1, e2) -> dict:
                 kd_prims=kd.prims, kd_bounds=kd.bounds)
 
 
+def kd_tris_np(prims, tris_packed) -> np.ndarray:
+    """The kd-tree kernel's triangles in leaf order: row i is triangle
+    prims[i] of ``tris_packed`` (p0, e1, e2), with its prim id in column 9
+    as int32 bits, so that a leaf's tests read their rows contiguously and
+    follow no index (``csrc/kd_traverse.cu``).  (P, 12) f32."""
+    prims = np.asarray(prims, np.int32)
+    rows = np.zeros((prims.shape[0], 12), np.float32)
+    rows[:, 0:9] = np.asarray(tris_packed, np.float32)[prims, 0:9]
+    rows.view(np.int32)[:, 9] = prims
+    return rows
+
+
 def placeholder_leaves() -> dict:
     """The reference's kd leaves of a scene built without a kd-tree: one
     empty leaf with zero bounds."""
@@ -176,8 +188,9 @@ def intersect_kd_plain(scene, o, d, t_max, any_hit: bool = False,
     """Closest-hit (or any-hit) against the scene's kd-tree.  Every step,
     each live ray visits one node; only live rays are gathered (the
     per-ray results are the reference walker's, which steps every ray
-    each iteration).  work: a dict to which the node visits ("nodes") and
-    the triangle tests ("tris") are added."""
+    each iteration).  work: a dict to which the node visits ("nodes"), of
+    them the leaf visits that test ("leaves") and the visits the early out
+    culls ("culled"), and the triangle tests ("tris") are added."""
     N = o.shape[0]
     dev = o.device
     inv_d = _inv_dir(d)
@@ -216,6 +229,9 @@ def intersect_kd_plain(scene, o, d, t_max, any_hit: bool = False,
         lo_, hi_ = smin[idx], smax[idx]
         # the early out: the closest hit is already nearer than this node
         active = lo_ <= tt
+        if work is not None:
+            work["leaves"] = work.get("leaves", 0) + int((active & is_leaf).sum())
+            work["culled"] = work.get("culled", 0) + int((~active).sum())
         # a leaf's triangles, all tested at once: the first of the least t
         # below the ray's t is the in-order tests' result (each test needs
         # t' < the t the earlier ones left)

@@ -158,7 +158,7 @@ def shard_scene_geometry(scene, n_shards: int = None, group=None):
     to the BVH kernel's 4-wide nodes.  Lights, materials and textures stay
     with the replicated scene.  Returns this rank's shards."""
     from ..ops import bvh as bvhlib
-    from ..ops.intersect_kernel import build_bvh4_np
+    from ..ops.intersect_kernel import build_bvh4_np, pack_nodes_np
 
     n = meshlib.resolve_shards(n_shards, group)
     dev = scene.tri_p0.device
@@ -178,13 +178,7 @@ def shard_scene_geometry(scene, n_shards: int = None, group=None):
             tris, gids = np.zeros((1, 12), np.float32), np.zeros(1, np.int64)
         flat = bvhlib.build_bvh(sub_p, use_native=False)
         order = flat.prim_order
-        nodes = np.zeros((flat.node_min.shape[0], 8), np.int32)
-        nodes[:, 0:3] = flat.node_min.astype(np.float32).view(np.int32)
-        nodes[:, 3:6] = flat.node_max.astype(np.float32).view(np.int32)
-        nodes[:, 6] = flat.node_right.astype(np.int32)
-        nodes[:, 7] = ((flat.node_count.astype(np.int32) << 2)
-                       | flat.node_axis.astype(np.int32))
-        wide, stack = build_bvh4_np(nodes)
+        wide, stack = build_bvh4_np(pack_nodes_np(flat))
         shards.append(GeometryShard(
             shard=k, bvh4_nodes=torch.as_tensor(wide, device=dev),
             bvh4_stack=int(stack),

@@ -16,7 +16,10 @@ tables), the constant and map environment, homogeneous and grid-density
 media, world bounds, the cluster pack of the fused traversal kernel, the
 kd-tree of the ``kdtree`` accel, and object motion blur: the sub-keyframes
 of animated shapes (``tris_steps_packed``, ``tri_ng_steps``,
-``tri_ns_steps``) with a BVH over the union of all of them.
+``tri_ns_steps``) with a BVH over the union of all of them, which the CPU
+walker follows, and the BVH kernel's motion tables (``mot_*``: a BVH over
+the static triangles and one over the moving triangles per keyframe
+segment).
 """
 
 from __future__ import annotations
@@ -399,19 +402,15 @@ def build_leaves(sd, with_clusters: bool = False, with_kdtree: bool = None
             [spat_cdf, np.full((spat_cdf.shape[0], pad_n), 2.0, np.float32)], 1)
 
     # ---- packed traversal layouts: one row gather per node / triangle ----
-    M_nodes = flat.node_min.shape[0]
-    nodes_packed = np.zeros((M_nodes, 8), np.int32)
-    nodes_packed[:, 0:3] = flat.node_min.astype(np.float32).view(np.int32)
-    nodes_packed[:, 3:6] = flat.node_max.astype(np.float32).view(np.int32)
-    nodes_packed[:, 6] = flat.node_right.astype(np.int32)
-    nodes_packed[:, 7] = ((flat.node_count.astype(np.int32) << 2)
-                          | flat.node_axis.astype(np.int32))
+    from ..ops.intersect_kernel import (build_bvh4_np, build_motion_split_np,
+                                        pack_nodes_np)
+    nodes_packed = pack_nodes_np(flat)
     tris_packed = np.zeros((p.shape[0], 12), np.float32)
     tris_packed[:, 0:3] = p[:, 0]
     tris_packed[:, 3:6] = e1
     tris_packed[:, 6:9] = e2
-    from ..ops.intersect_kernel import build_bvh4_np
     bvh4_nodes, bvh4_stack = build_bvh4_np(nodes_packed)
+    motion_split = build_motion_split_np(tris_steps, nodes_packed)
 
     # ---- ray-cone texture filter inputs ----
     duv1 = uv[:, 1] - uv[:, 0]
@@ -464,13 +463,14 @@ def build_leaves(sd, with_clusters: bool = False, with_kdtree: bool = None
         tex_theta=np.float32(tex_theta),
         tex_cone_o=np.asarray(cam.cam_to_world[:3, 3], np.float32),
         tris_steps_packed=tris_steps, tri_ng_steps=ng_steps,
-        tri_ns_steps=ns_steps,
+        tri_ns_steps=ns_steps, **motion_split,
     )
     # the kd-tree over the same BVH-ordered triangles: the two aggregates
     # share prim ids
     from ..ops import kdtree as kdlib
     leaves.update(kdlib.kd_leaves(p[:, 0], e1, e2) if with_kdtree
                   else kdlib.placeholder_leaves())
+    leaves["kd_tris"] = kdlib.kd_tris_np(leaves["kd_prims"], tris_packed)
     leaves.update(med)
     leaves.update({f"textures.{k}": v for k, v in tex_leaves.items()})
     if fourier_tables:

@@ -23,7 +23,7 @@ from .textures import TextureTable, table_from_numpy
 
 # scalar leaves kept as python numbers (read by the host, never synced)
 _INT_SCALARS = ("n_spheres", "n_lights", "has_env_map", "env_light_id",
-                "bvh4_stack", "camera_medium")
+                "bvh4_stack", "mot_stack", "camera_medium")
 _FLOAT_SCALARS = ("world_radius", "tex_theta")
 
 
@@ -153,12 +153,22 @@ class DeviceScene:
     tris_steps_packed: torch.Tensor  # (M,T,12) f32: p0, e1, e2, pad
     tri_ng_steps: torch.Tensor       # (M,T,3)
     tri_ns_steps: torch.Tensor       # (M,T,3,3)
+    # ... and the BVH kernel's motion tables over them (the port's own;
+    # ops/intersect_kernel.py::build_motion_split_np): a BVH over the
+    # static triangles from node 0, then one over the moving triangles per
+    # keyframe segment; placeholders in a static scene
+    mot_nodes: torch.Tensor        # (W,32) i32: the wide nodes of all of them
+    mot_roots: torch.Tensor        # (M-1,) i32: segment s's first node
+    mot_static_tris: torch.Tensor  # (S,12) f32: p0, e1, e2, prim id bits, pad
+    mot_moving_tris: torch.Tensor  # (M-1,V,24) f32: keyframes s, s+1 as above
+    mot_stack: int                 # the deepest stack of any of them
     # the kd-tree of the "kdtree" accel over the same triangles (one empty
     # leaf when the scene was built without it)
     kd_split: torch.Tensor    # (K,) f32
     kd_meta: torch.Tensor     # (K,) i32: axis (3 = leaf) | count << 2
     kd_offset: torch.Tensor   # (K,) i32: above child, or a leaf's first prim
     kd_prims: torch.Tensor    # (P,) i32
+    kd_tris: torch.Tensor     # (P,12) f32: tris_packed[kd_prims], id bits in 9
     kd_bounds: torch.Tensor   # (2,3) f32
     clusters: Optional[ClusterPack] = None
     fourier: Optional[FourierDev] = None   # None: no Fourier material

@@ -10,10 +10,13 @@ the cluster kernel's n_cand, prim, t and any-hit validity.  The BVH kernel
 against the binary walker of the CPU path: prim ids equal on >= 99.9% of
 rays, t bit-equal where they agree, any-hit validity on >= 99.9%; the
 same on a soup with leaves of 6 and 10 triangles.  The kd-tree kernel
-(K3) against intersect_kd_plain and the BVH kernel's motion variant
-against bvh_traverse_wide_plain with times: t, prim, barycentrics
+(K3) against intersect_kd_plain (also on a leaf that holds one triangle
+twice, where the first in leaf order wins) and the BVH kernel's motion
+variant against bvh_traverse_motion_plain: t, prim, barycentrics
 identical on a soup and on atrium (scenes/atrium_motion.pbrt for the
-motion variant; at time 0 it equals the static kernel).  The photon
+motion variant, and a soup whose static and moving triangles are split
+from its sub-keyframes by build_motion_split_np; on atrium given as two
+equal keyframes it equals the static kernel).  The photon
 gather's range query (K4) against photon_query_plain: the slot table, M
 and dropped identical.  GPU
 renders against the CPU render: test_golden's criterion.  The train step on
@@ -430,14 +433,10 @@ def _motion_check(scene, o, d, tm, time, any_hit):
     from pbrt_v3_iile_tpu_torch.ops import intersect_kernel as k2
 
     n0 = k2.LAUNCHES_MOTION
-    got = k2.bvh_traverse_cuda(scene.bvh4_nodes, scene.bvh4_stack,
-                               scene.tris_packed, o, d, tm, any_hit=any_hit,
-                               time=time, tris_steps=scene.tris_steps_packed)
+    got = k2.bvh_traverse_motion_cuda(scene, o, d, tm, time, any_hit=any_hit)
     torch.cuda.synchronize()
     assert k2.LAUNCHES_MOTION == n0 + 1
-    want = k2.bvh_traverse_wide_plain(scene.bvh4_nodes, scene.tris_packed, o, d,
-                                      tm, any_hit=any_hit, time=time,
-                                      tris_steps=scene.tris_steps_packed)
+    want = k2.bvh_traverse_motion_plain(scene, o, d, tm, time, any_hit=any_hit)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     return got
@@ -446,7 +445,7 @@ def _motion_check(scene, o, d, tm, time, any_hit):
 @pytest.mark.cuda
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_motion_kernel_matches_plain_on_soup(soup_scene, any_hit):
-    """K2's motion variant against bvh_traverse_wide_plain with the same
+    """K2's motion variant against bvh_traverse_motion_plain with the same
     times: t, prim and barycentrics identical."""
     scene, (o, d, tm) = soup_scene
     rng = np.random.default_rng(5)
@@ -482,21 +481,68 @@ def test_motion_kernel_matches_plain_on_atrium(motion_atrium, any_hit):
 
 @pytest.mark.cuda
 def test_motion_kernel_at_time_0_equals_static_kernel(gpu_scene):
-    """On a static scene (atrium's triangles as two equal keyframes) the
-    motion variant at time 0 is the static kernel."""
+    """On a static scene (atrium's triangles as two equal keyframes, all
+    of them static) the motion variant at time 0 is the static kernel."""
     from pbrt_v3_iile_tpu_torch.ops import intersect_kernel as k2
 
     scene, _, waves = gpu_scene
     o, d, tm = waves["bounce"]
-    steps = scene.tris_packed[None].expand(2, -1, -1).contiguous()
-    got = k2.bvh_traverse_cuda(scene.bvh4_nodes, scene.bvh4_stack,
-                               scene.tris_packed, o, d, tm,
-                               time=torch.zeros_like(tm), tris_steps=steps)
+    tris = scene.tris_packed.cpu().numpy()
+    split = k2.motion_split(k2.build_motion_split_np(
+        np.stack([tris, tris]), scene.nodes_packed.cpu().numpy()), o.device)
+    assert split.mot_static_tris.shape[0] == tris.shape[0]
+    got = k2.bvh_traverse_motion_cuda(split, o, d, tm, torch.zeros_like(tm))
     want = k2.bvh_traverse_cuda(scene.bvh4_nodes, scene.bvh4_stack,
                                 scene.tris_packed, o, d, tm)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_motion_kernel_matches_plain_on_split_soup(any_hit):
+    """The motion variant on tables split from a soup's own sub-keyframes
+    (torch_parity.motion_soup: static, turning and translating triangles)
+    against bvh_traverse_motion_plain, with times at the segment ends and
+    the largest float below 1 among them."""
+    from pbrt_v3_iile_tpu_torch.ops import intersect_kernel as k2
+    from torch_parity import motion_soup
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(17)
+    split = k2.motion_split(k2.build_motion_split_np(*motion_soup(rng)), dev)
+    assert split.mot_moving_tris.shape[1] > 0 and split.mot_static_tris.shape[0] > 0
+    o, d, tm = _random_rays(rng, 8192, dev)
+    time = torch.as_tensor(rng.uniform(0, 1, o.shape[0]), dtype=torch.float32,
+                           device=dev)
+    time[:4] = torch.tensor([0.0, 1.0, 0.5, float(np.nextafter(1, 0,
+                                                               dtype=np.float32))])
+    got = _motion_check(split, o, d, tm, time, any_hit)
+    assert (got[1] >= 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_kd_kernel_first_in_leaf_order_on_a_tie(any_hit):
+    """A kd leaf that holds the same triangle twice: K3 keeps the first in
+    leaf order, as intersect_kd_plain does (torch_parity.kd_tie_scene, on
+    which tests/test_torch_kdtree.py holds the plain version)."""
+    from pbrt_v3_iile_tpu_torch.ops import kd_kernel as k3
+    from torch_parity import kd_tie_scene
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    scene, (o, d, tm), first = kd_tie_scene(torch.device("cuda"))
+    got = k3.kd_traverse_cuda(scene, o, d, tm, any_hit=any_hit)
+    torch.cuda.synchronize()
+    want = k3.intersect_kd_plain(scene, o, d, tm, any_hit=any_hit)
+    for a, b in zip(got, (want.t, want.prim, want.b1, want.b2)):
+        assert torch.equal(a, b)
+    prim = got[1][got[1] >= 0]
+    assert prim.numel() > 1000 and bool((first[prim.long()] == prim).all())
 
 
 def _photon_query_inputs(dev):

@@ -9,7 +9,9 @@ obj2pbrt,cyhair2pbrt,tools,gui}`` and the viewers
 own ``scene/api.py`` renders (also row-sharded over 2 shards; the tools'
 bsdftest runs; also on the kd-tree, and with ``bdpt``,
 ``sppm``, ``mlt`` and ``grad`` at 8x8), a scene with camera
-and object motion and one through a realistic lens render, a scene
+and object motion (its device scene with the BVH kernel's motion tables,
+which the kernel's plain version walks) and one through a realistic lens
+render, a scene
 without a Sampler line (pbrt's
 default, halton), with a procedural texture and a goniometric light,
 renders with ``path``, ``whitted`` and ``ambientocclusion``, a volpath
@@ -100,6 +102,16 @@ sd_m = apilib.load_scene_string('''
 assert sd_m.has_motion and sd_m.camera.cam_to_world_end is not None
 img_m, _ = render.render(sd_m, spp=2, device="cpu")
 assert np.isfinite(img_m).all() and img_m.mean() > 0
+from pbrt_v3_iile_tpu_torch.ops import intersect_kernel as K2
+scene_m, _ = render.build(sd_m, "cpu")
+M = scene_m.tris_steps_packed.shape[0]
+assert M >= 2 and scene_m.mot_moving_tris.shape == (M - 1, 2, 24)
+o_m = torch.tensor([[0.0, 1.0, -4.0]]).expand(8, 3).contiguous()
+d_m = torch.tensor([[0.0, -0.1, 1.0]]) / torch.tensor([[0.0, -0.1, 1.0]]).norm()
+hit_m = K2.bvh_traverse_motion_plain(scene_m, o_m, d_m.expand(8, 3).contiguous(),
+                                     torch.full((8,), 1e30),
+                                     torch.linspace(0, 1, 8))
+assert bool((hit_m[1] >= 0).all())
 sd_r = apilib.load_scene_string('''
     LookAt 0 1 -4  0 0.5 0  0 1 0
     Camera "realistic" "string lensfile" "scenes/lens_wide22.dat"

@@ -4,6 +4,8 @@
   200-triangle build): every array bit-equal to the JAX package's (the
   same numpy code); the kd leaves of the device scene of a soup with
   ``Accelerator "kdtree"`` equal to the JAX build's;
+- the kernel's leaf-ordered triangle rows (``kd_tris``) in the port's
+  build and as derived from the JAX scene;
 - ``intersect_kd_plain`` (the plain version of the kd-tree kernel, K3)
   against JAX ``intersect_kd`` on the same scene and rays (a soup whose
   leaves hold at most 8 triangles), closest-hit and any-hit: prim and
@@ -14,6 +16,8 @@
 - a second fault of the reference that the port does not copy: its
   walker tests only the first 8 triangles of a leaf, and the build makes
   longer leaves; the port tests them all, as the BVH finds them;
+- on leaves that hold bit-equal copies of a triangle, the plain version
+  keeps the first in leaf order, as the JAX walker does;
 - the 16^2 render of atrium with ``Accelerator "kdtree"`` against the JAX
   package's render of the same scene with its BVH walker
   (tests/golden/camera16_kdtree.npz, made by tools/make_camera_golden.py:
@@ -94,6 +98,19 @@ def test_kd_leaves_match_jax(soup_scenes):
         want = np.asarray(getattr(js, f))
         np.testing.assert_array_equal(np.asarray(leaves[f], want.dtype), want,
                                       err_msg=f)
+
+
+def test_kd_tris_are_the_leaf_ordered_triangles(soup_scenes):
+    """The kd-tree kernel's kd_tris: row i is triangle kd_prims[i] of
+    tris_packed with its id in column 9, in the port's build and as
+    jax_scene_leaves derives it from the JAX scene, bit for bit."""
+    js, leaves = soup_scenes
+    rows, prims = leaves["kd_tris"], leaves["kd_prims"]
+    np.testing.assert_array_equal(rows[:, 0:9], leaves["tris_packed"][prims, 0:9])
+    np.testing.assert_array_equal(rows.view(np.int32)[:, 9], prims)
+    assert not rows[:, 10:].any()
+    np.testing.assert_array_equal(jax_scene_leaves(js)["kd_tris"].view(np.int32),
+                                  rows.view(np.int32))
 
 
 @pytest.mark.parametrize("any_hit", [False, True])
@@ -181,3 +198,61 @@ def test_every_triangle_of_a_leaf_is_tested():
     ref = jkd.intersect_kd(SimpleNamespace(**{k: jnp.asarray(v) for k, v in leaves.items()}),
                            jnp.asarray(o), jnp.asarray(d), jnp.asarray(tm))
     assert int(port.prim[0]) == 8 and int(ref.prim[0]) == 7
+
+
+def test_intersect_kd_plain_counts_visits_by_kind(soup_scenes):
+    """The plain version's work: the leaf visits that test and the visits
+    the early out culls are parts of the node visits; on the soups some
+    of each kind occur, and a leaf of 9 met by one ray is one leaf visit
+    of 9 tests."""
+    scene = scene_from_numpy(soup_scenes[1], "cpu")
+    rng = np.random.default_rng(5)
+    o = tt(rng.uniform(-4, 4, (512, 3)).astype(np.float32))
+    d = rng.normal(size=(512, 3))
+    d = tt((d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32))
+    work = {}
+    tkd.intersect_kd_plain(scene, o, d, tt(np.full(512, 1e30, np.float32)), work=work)
+    interior = work["nodes"] - work["leaves"] - work["culled"]
+    assert work["leaves"] > 0 and work["culled"] > 0 and interior > 0
+    assert work["tris"] >= work["leaves"]
+    p0 = np.tile(np.array([[-1.0, -1.0, 0.0]], np.float32), (9, 1))
+    e1 = np.tile(np.array([[2.0, 0.0, 0.08]], np.float32), (9, 1))
+    e2 = np.stack([np.zeros(9), np.full(9, 2.0), 0.08 - 0.01 * np.arange(9)],
+                  1).astype(np.float32)
+    kd = tkd.build_kdtree(p0, e1, e2)
+    tris = np.zeros((9, 12), np.float32)
+    tris[:, 0:3], tris[:, 3:6], tris[:, 6:9] = p0, e1, e2
+    leaf = SimpleNamespace(tris_packed=tt(tris),
+                           **{f"kd_{f}": tt(getattr(kd, f)) for f in KD_FIELDS})
+    work = {}
+    tkd.intersect_kd_plain(leaf, tt(np.array([[-0.5, -0.5, -1.0]], np.float32)),
+                           tt(np.array([[0.0, 0.0, 1.0]], np.float32)),
+                           tt(np.full(1, 1e30, np.float32)), work=work)
+    assert work == {"nodes": 1, "leaves": 1, "culled": 0, "tris": 9}
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_intersect_kd_plain_first_in_leaf_order_on_a_tie(any_hit):
+    """Leaves that hold bit-equal copies of a triangle, the copy (the
+    larger id) first in leaf order (torch_parity.kd_tie_scene): the plain
+    version keeps the first in leaf order, as the reference's in-order
+    tests do (each needs t' below the t the earlier ones left), and not
+    the smaller id (the BVH kernel's rule), with t equal to the copies'
+    and the JAX walker's prims on every ray."""
+    from torch_parity import kd_tie_scene
+
+    scene, (o, d, tm), first = kd_tie_scene("cpu")
+    meta = scene.kd_meta.numpy()
+    assert (meta[meta & 3 == 3] >> 2).max() <= tkd.MAX_PRIMS
+    h = tkd.intersect_kd_plain(scene, o, d, tm, any_hit=any_hit)
+    prim = h.prim.clamp(min=0).long()
+    lost = h.valid & (first[prim] != h.prim)   # the original beat its copy
+    copies = h.valid & (h.prim >= 200)
+    assert int(copies.sum()) > 1000 and not bool(lost.any())
+    js = SimpleNamespace(**{k: jnp.asarray(getattr(scene, k).numpy())
+                            for k in ("kd_split", "kd_meta", "kd_offset",
+                                      "kd_prims", "kd_bounds", "tris_packed")})
+    jh = to_np(jkd.intersect_kd(js, jnp.asarray(o.numpy()),
+                                jnp.asarray(d.numpy()), jnp.asarray(tm.numpy()),
+                                any_hit=any_hit))
+    np.testing.assert_array_equal(h.prim.numpy(), jh["prim"])

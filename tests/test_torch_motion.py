@@ -241,16 +241,23 @@ def test_motion_render_16_matches_golden(atrium_motion, name):
 
 @pytest.mark.parametrize("steps,refused", [(10, False), (11, True)])
 def test_motion_kernel_refuses_offsets_past_32_bits(steps, refused):
-    """K2's motion variant reads row seg * T + pid of its (M, T, 12) steps
-    as 3 float4s at a 32-bit offset: the wrapper refuses 3 M T > 2**31
-    before anything is launched (M = 11 at the 2**26 triangles the kernel
-    allows; a stride-0 view stands in for the steps)."""
+    """K2's motion variant reads moving triangle pid of segment s as the 6
+    float4s of row s * V + pid of its (M - 1, V, 24) moving table at a
+    32-bit offset: the wrapper refuses 6 (M - 1) V > 2**31 before anything
+    is launched (with V = 36 * 2**20 moving triangles, below the 2**26
+    that the kernel's test list allows, M = 11 keyframes is the first
+    refused; a stride-0 view stands in for the table)."""
+    from types import SimpleNamespace
+
     from pbrt_v3_iile_tpu_torch.ops import intersect_kernel as K2
 
-    tris_steps = torch.zeros(1, 1, 12).expand(steps, 1 << 26, 12)
+    split = SimpleNamespace(
+        mot_nodes=torch.zeros(1, K2.NODE_INTS, dtype=torch.int32),
+        mot_roots=torch.zeros(steps - 1, dtype=torch.int32),
+        mot_static_tris=torch.zeros(1, 12),
+        mot_moving_tris=torch.zeros(1, 1, 24).expand(steps - 1, 36 << 20, 24),
+        mot_stack=0)
     z3, z1 = torch.zeros(1, 3), torch.zeros(1)
     with pytest.raises(ValueError) as err:
-        K2.bvh_traverse_cuda(torch.zeros(1, K2.NODE_INTS, dtype=torch.int32),
-                             0, None, z3, z3, z1, time=z1,
-                             tris_steps=tris_steps)
+        K2.bvh_traverse_motion_cuda(split, z3, z3, z1, z1)
     assert ("32 bits" in str(err.value)) == refused, err.value

@@ -146,6 +146,85 @@ def rays_at(rng, centres, N):
     return o.astype(np.float32), d.astype(np.float32), tmax.astype(np.float32)
 
 
+def motion_soup(rng, T=600, M=4):
+    """A soup for the BVH kernel's motion tables: T random triangles of
+    which a third stay put, a third turn 40 degrees about the y axis and a
+    third move by (0.3, 0.1, 0) over the shutter, at M sub-keyframes.
+    Returns (steps (M, T, 12) f32: p0, e1, e2, pad at each sub-keyframe,
+    in the order of a numpy BVH over their union, as the device scene
+    orders them; that BVH's ``nodes_packed``)."""
+    from pbrt_v3_iile_tpu_torch.ops import bvh
+    from pbrt_v3_iile_tpu_torch.ops.intersect_kernel import pack_nodes_np
+
+    c = rng.uniform(-2, 2, (T, 1, 3))
+    p = c + rng.uniform(-0.4, 0.4, (T, 3, 3))
+    kind = np.arange(T) % 3
+    frames = []
+    for s in np.linspace(0.0, 1.0, M):
+        a = np.deg2rad(40.0) * s
+        rot = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                        [-np.sin(a), 0, np.cos(a)]])
+        q = np.where((kind == 1)[:, None, None], p @ rot.T, p)
+        q = np.where((kind == 2)[:, None, None], p + s * np.array([0.3, 0.1, 0]), q)
+        frames.append(q.astype(np.float32))
+    p_steps = np.stack(frames)                           # (M, T, 3, 3)
+    flat = bvh.build_bvh(np.concatenate(list(p_steps), axis=1),
+                         use_native=False)
+    return pack_steps(p_steps[:, flat.prim_order]), pack_nodes_np(flat)
+
+
+def pack_steps(p_steps):
+    """Sub-keyframe vertices (M, T, 3, 3) -> the rows of
+    ``tris_steps_packed`` (M, T, 12) f32: p0, e1, e2, pad."""
+    steps = np.zeros(p_steps.shape[:2] + (12,), np.float32)
+    steps[..., 0:3] = p_steps[:, :, 0]
+    steps[..., 3:6] = p_steps[:, :, 1] - p_steps[:, :, 0]
+    steps[..., 6:9] = p_steps[:, :, 2] - p_steps[:, :, 0]
+    return steps
+
+
+def kd_tie_scene(device, T=200, n_dup=60, seed=23):
+    """A soup whose kd leaves hold ties: triangle T + j is a bit-equal copy
+    of triangle dup[j], and every leaf's prim list is reversed, so that
+    the copy (the larger id) comes first in leaf order.
+    Rays aim at the duplicated triangles from 3 away.  Returns (scene
+    with the kd-tree kernel's fields, (o, d, t_max), first), first[p] the
+    id that a tie between p and its twin returns (the first in leaf
+    order)."""
+    from types import SimpleNamespace
+
+    from pbrt_v3_iile_tpu_torch.ops import kdtree
+
+    rng = np.random.default_rng(seed)
+    p0 = rng.uniform(-2, 2, (T, 3)).astype(np.float32)
+    e1 = rng.uniform(-0.4, 0.4, (T, 3)).astype(np.float32)
+    e2 = rng.uniform(-0.4, 0.4, (T, 3)).astype(np.float32)
+    dup = rng.choice(T, n_dup, replace=False)
+    p0, e1, e2 = (np.concatenate([x, x[dup]]) for x in (p0, e1, e2))
+    kd = kdtree.build_kdtree(p0, e1, e2)
+    prims = kd.prims.copy()
+    leaf = (kd.meta & 3) == 3
+    for off, cnt in zip(kd.offset[leaf], kd.meta[leaf] >> 2):
+        prims[off:off + cnt] = prims[off:off + cnt][::-1].copy()
+    first = np.arange(T + n_dup)
+    first[dup] = T + np.arange(n_dup)
+    tris = np.zeros((T + n_dup, 12), np.float32)
+    tris[:, 0:3], tris[:, 3:6], tris[:, 6:9] = p0, e1, e2
+    N = 2048
+    target = p0[dup] + (e1[dup] + e2[dup]) / 3
+    c = target[np.arange(N) % n_dup]
+    u = rng.normal(size=(N, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    o, d = (c + 3 * u).astype(np.float32), (-u).astype(np.float32)
+    as_t = lambda x: torch.as_tensor(x, device=device)
+    scene = SimpleNamespace(
+        kd_split=as_t(kd.split), kd_meta=as_t(kd.meta), kd_offset=as_t(kd.offset),
+        kd_prims=as_t(prims), kd_bounds=as_t(kd.bounds), tris_packed=as_t(tris),
+        kd_tris=as_t(kdtree.kd_tris_np(prims, tris)), has_kdtree=True)
+    rays = (as_t(o), as_t(d), as_t(np.full(N, 1e30, np.float32)))
+    return scene, rays, as_t(first.astype(np.int32))
+
+
 def golden_criterion(img, ref):
     """tests/test_golden.py's criterion: mean within 2%, and >= 99% of
     pixels within 5% relative (+1e-2)."""
@@ -160,12 +239,18 @@ def jax_scene_leaves(ds) -> dict:
     """Numpy leaves of a JAX DeviceScene under the names the port's
     ``scene_from_numpy`` reads (the port's fields only).  The BVH kernel's
     4-wide nodes, which the reference lacks, are collapsed by the port's
-    ``build_bvh4_np`` from the reference's ``nodes_packed``."""
-    from pbrt_v3_iile_tpu_torch.ops.intersect_kernel import build_bvh4_np
+    ``build_bvh4_np`` from the reference's ``nodes_packed``, and its motion
+    tables are built by the port's ``build_motion_split_np`` from the
+    reference's ``tris_steps_packed`` (in its prim order) and
+    ``nodes_packed``, and the kd-tree kernel's leaf-ordered triangles by
+    ``kd_tris_np``."""
+    from pbrt_v3_iile_tpu_torch.ops.intersect_kernel import (
+        build_bvh4_np, build_motion_split_np)
+    from pbrt_v3_iile_tpu_torch.ops.kdtree import kd_tris_np
 
     out = {}
     for f in fields(DeviceScene):
-        if f.name.startswith("bvh4_"):
+        if f.name.startswith(("bvh4_", "mot_")) or f.name == "kd_tris":
             continue
         if f.name == "textures":
             for g in fields(TextureTable):
@@ -182,6 +267,9 @@ def jax_scene_leaves(ds) -> dict:
             out[f.name] = np.asarray(getattr(ds, f.name))
     wide, depth = build_bvh4_np(out["nodes_packed"])
     out["bvh4_nodes"], out["bvh4_stack"] = wide, np.int32(depth)
+    out.update(build_motion_split_np(out["tris_steps_packed"],
+                                     out["nodes_packed"]))
+    out["kd_tris"] = kd_tris_np(out["kd_prims"], out["tris_packed"])
     return out
 
 
