@@ -155,11 +155,16 @@ Phases (one line each):
   13. bidirectional and photon transport (run after phase 12 and before
      phase 8's profiler sessions): (a) the photon gather's range query
      (K4) against its plain version on the first SPPM iteration of atrium
-     512^2 (the file's depth 6, radius 0.05, one photon a pixel): the slot
-     table, M and dropped identical; the whole gather (K4 and the batched
+     512^2 (the file's depth 6, radius 0.05, one photon a pixel): the pair
+     list, M and dropped identical; the whole gather (K4 and the batched
      BSDF evaluation) against the plain path: M and dropped identical, Phi
-     within 1e-5 of its max; K4's ms by CUDA events over 20 calls, its
-     bound from the bytes it must move; (b) at 128^2, seed 3, against the
+     within 1e-5 of its max, the gather's ms (its first call, then over 5
+     calls by CUDA events) and device memory peak over what it is handed
+     (its first call); K4's ms (the whole query: its kernels, the prefix
+     sum and the host's read of the pair count) by CUDA events over 20
+     calls, its kernel launches a query, registers and spills, its bound
+     from the bytes it must move beside the slot table's yardstick (the
+     bound of the slot-table design it replaced); (b) at 128^2, seed 3, against the
      JAX package's renders (tests/golden/bidir128_*.npz, made by
      tools/make_bidir_golden.py): bdpt at 4 spp (the image and, apart, the
      splat film) and sppm at 8 iterations (radius 0.05; dropped within 1%
@@ -319,6 +324,32 @@ def timed_once(fn):
     b.record()
     torch.cuda.synchronize()
     return out, a.elapsed_time(b)
+
+
+def ptxas_registers(name):
+    """Registers and spilled bytes of each kernel of csrc/<name>.cu, from
+    what ptxas said in phase 2's build ({} when the library was cached).
+    K4's query kernels are named by pass."""
+    from pbrt_v3_iile_tpu_torch import _build
+
+    out, kernel = {}, None
+    for ln in _build.PTXAS.get(name, "").splitlines():
+        f = re.search(r"entry function '(\w+)'", ln)
+        if f:
+            kernel = f.group(1)
+            q = re.search(r"query_kernelILb([01])E", kernel)
+            if q:
+                kernel = "fill" if q.group(1) == "1" else "count"
+            elif "bucket_start_kernel" in kernel:
+                kernel = "bucket_start"
+        r = re.search(r"Used (\d+) registers", ln)
+        if r and kernel:
+            out.setdefault(kernel, {})["registers"] = int(r.group(1))
+        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if sp and kernel:
+            out.setdefault(kernel, {})["spill_bytes"] = (int(sp.group(1))
+                                                         + int(sp.group(2)))
+    return out
 
 
 def bound(ops, nbytes):
@@ -1680,10 +1711,12 @@ def camera_kernel_timing(cams, scene, waves, K2, K3, isect, kdtree, smi):
 
 
 # phase 13: bidirectional and photon transport.  K4's range query: per
-# in-range cell of a visible point two bucket bounds are read (8 bytes);
-# per photon tested its position (12 bytes) once
+# visible point its inputs (cells 24 bytes, valid 1, position 12, r2 4) and
+# outputs (M, dropped: 8 bytes); per visited cell two bucket bounds (8
+# bytes); per photon tested its position (12 bytes) once; per pair 8 bytes
 BIDIR_FILM = 512
 K4_REPS = 20
+GATHER_REPS = 5        # the 512^2 gather timed warm, after its first call
 MLT_STEPS = 32         # chain steps measured at 512^2
 GRAD_TOL = 1e-3        # gradients: within 1e-3 of each tensor's max (or
                        # the reference's accel spread, see bidir_phase)
@@ -1773,22 +1806,31 @@ def bidir_phase(dev, smi, K1, K2, atrium):
     p_sorted = ph[0][order].contiguous()
     args = (lo_c, hi_c, vp["valid"], vp["p"], radius * radius, h_sorted,
             p_sorted, m)
-    l4 = K4.LAUNCHES
+    l4, kl4 = K4.LAUNCHES, K4.KERNEL_LAUNCHES
     got = K4.photon_query_cuda(*args)
+    k4_kernel_launches = K4.KERNEL_LAUNCHES - kl4
     want, plain_ms = timed_once(lambda: K4.photon_query_plain(*args))
     same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
-    k4_err = max(float((a.double() - b.double()).abs().max())
-                 for a, b in zip(got, want))
-    line("K4_vs_plain_sppm512", slots_M_dropped_identical=same,
+    k4_err = (max(float((a.double() - b.double()).abs().max()) if a.numel()
+                  else 0.0 for a, b in zip(got, want))
+              if all(a.shape == b.shape for a, b in zip(got, want))
+              else float("inf"))
+    pairs = int(got[0].shape[0])
+    line("K4_vs_plain_sppm512", pairs_M_dropped_identical=same,
          max_abs_err=k4_err,
          visible_points=int(vp["valid"].sum()), photons=int(ph[3].sum()),
-         deposits=int(ph[0].shape[0]), buckets=m,
-         pairs=int((got[0] >= 0).sum()), max_M=float(got[1].max()),
-         dropped=int(got[2].sum()))
+         deposits=int(ph[0].shape[0]), buckets=m, pairs=pairs,
+         max_M=float(got[2].max()), dropped=int(got[3].sum()))
     check(all(same), "K4 differs from photon_query_plain")
-    # the whole gather, the kernel's path against the plain path's
-    (Phi, M, drop), gather_ms = timed_once(lambda: sppmlib._gather(
-        vp, *ph, radius, grid_origin, cell))
+    # the whole gather, the kernel's path against the plain path's, and
+    # its device memory peak over what it is handed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    gather = lambda: sppmlib._gather(vp, *ph, radius, grid_origin, cell)
+    (Phi, M, drop), gather_first_ms = timed_once(gather)
+    gather_mb = (torch.cuda.max_memory_allocated() - mem0) / 1e6
+    gather_ms = cuda_ms(gather, GATHER_REPS)
     cuda_query = K4.photon_query
     K4.photon_query = lambda *a: K4.photon_query_plain(
         *[x.contiguous() for x in a[:-1]], a[-1])
@@ -1799,30 +1841,47 @@ def bidir_phase(dev, smi, K1, K2, atrium):
     phi_err = float((Phi - Phi_p).abs().max() / Phi_p.abs().max().clamp(min=1e-30))
     line("gather_vs_plain_sppm512", M_identical=bool(torch.equal(M, M_p)),
          dropped=int(drop), dropped_plain=int(drop_p), phi_rel_err=phi_err,
-         gather_ms=gather_ms)
+         gather_ms=gather_ms, gather_first_ms=gather_first_ms,
+         gather_peak_mb=gather_mb)
     check(torch.equal(M, M_p) and int(drop) == int(drop_p),
           "the gather's M or dropped differs from the plain path's")
     check(phi_err <= 1e-5, f"the gather's Phi differs by {phi_err} of its max")
     k4_ms = cuda_ms(lambda: K4.photon_query_cuda(*args), K4_REPS)
     # the bound: the bytes the query must move (the points' inputs, two
     # bucket bounds a visited cell, the photons of the visited runs; the
-    # slot table, M and dropped written)
+    # pairs, M and dropped written); the yardstick: the bound of the
+    # slot-table design the query replaced (its in-range cells before the bucket dedupe, and the
+    # (N, 8 * K_CAP) table in place of the pairs)
     ks = torch.arange(8, device=dev)
     offs = torch.stack([ks >> 2, (ks >> 1) & 1, ks & 1], -1).to(torch.int32)
     cc = lo_c[:, None, :] + offs[None]
     in_range = (cc <= hi_c[:, None, :]).all(-1) & vp["valid"][:, None]
     hc = sppmlib._hash_cells(cc.reshape(-1, 3), m).reshape(N, 8)
+    seen = (in_range[:, None, :] & (hc[:, :, None] == hc[:, None, :])
+            & torch.ones(8, 8, dtype=torch.bool, device=dev).tril(-1)).any(-1)
+    visited = in_range & ~seen
     lo = torch.searchsorted(h_sorted, hc)
     hi = torch.minimum(torch.searchsorted(h_sorted, hc, right=True), lo + K4.K_CAP)
-    run_len = torch.where(in_range, hi - lo, 0)
-    k4_bytes = (N * (24 + 1 + 12 + 4) + int(in_range.sum()) * 8
-                + int(run_len.sum()) * 12 + N * (8 * K4.K_CAP * 4 + 8))
-    k4_ops = int(run_len.sum()) * 9          # 3 sub, 3 mul, 2 add, 1 compare
+    tested = int(torch.where(visited, hi - lo, 0).sum())
+    k4_bytes = (N * (24 + 1 + 12 + 4 + 8) + int(visited.sum()) * 8
+                + tested * 12 + pairs * 8)
+    k4_ops = tested * 9          # 3 sub, 3 mul, 2 add, 1 compare
     k4_bound, k4_by = bound(k4_ops, k4_bytes)
+    run_len = torch.where(in_range, hi - lo, 0)
+    slot_bytes = (N * (24 + 1 + 12 + 4) + int(in_range.sum()) * 8
+                  + int(run_len.sum()) * 12 + N * (8 * K4.K_CAP * 4 + 8))
+    slot_bound, _ = bound(int(run_len.sum()) * 9, slot_bytes)
+    k4_regs = ptxas_registers("photon_gather")
     K4.LAUNCHES = l4
     line("K4_timing_sppm512", ms=k4_ms, plain_ms=plain_ms, bound_ms=k4_bound,
-         bound_by=k4_by, mbytes=k4_bytes / 1e6, photons_tested=int(run_len.sum()),
-         cells_visited=int(in_range.sum()), camera_pass_ms=cam_ms,
+         bound_by=k4_by, mbytes=k4_bytes / 1e6,
+         bound_ms_slot_table_yardstick=slot_bound,
+         mbytes_slot_table_yardstick=slot_bytes / 1e6, photons_tested=tested,
+         cells_visited=int(visited.sum()), pairs=pairs,
+         kernel_launches_per_query=k4_kernel_launches,
+         points_per_warp=K4._lib().photon_points_per_warp(),
+         registers=k4_regs,
+         gather_ms=gather_ms, gather_peak_mb=gather_mb, camera_pass_ms=cam_ms,
          photon_pass_ms=ph_ms, launches_passes=l_passes, power=smi)
 
     # ---- (b) the goldens at 128^2, seed 3 ----
@@ -2074,7 +2133,10 @@ def bidir_phase(dev, smi, K1, K2, atrium):
                                "steps in each of 8 cells, no pallas_call"),
                 launches=launches_sppm["photon_gather"], max_abs_err=k4_err,
                 ms=k4_ms, plain_ms=plain_ms, bound_ms=k4_bound, bound_by=k4_by,
-                library_ms=None,
+                library_ms=None, bound_ms_slot_table_yardstick=slot_bound,
+                kernel_launches_per_query=k4_kernel_launches,
+                registers=k4_regs, pairs=pairs, gather_ms=gather_ms,
+                gather_peak_mb=gather_mb,
                 launches_per_sppm_iteration=l_gather["photon_gather"]), profile_mlt
 
 

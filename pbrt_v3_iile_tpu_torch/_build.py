@@ -9,8 +9,9 @@ first CUDA call with
 into ``build/torch_kernels/`` at the repository root, under a file name
 that carries a hash of the source, the ``csrc`` headers it includes and
 the flags (an edited ``.cu`` or ``.cuh`` rebuilds), and is loaded with
-ctypes.  ``load(name, verbose=True)`` adds ``-Xptxas=-v`` and prints what
-the compiler says (registers, shared memory and spills per kernel).  ``--fmad=false`` keeps every
+ctypes.  ``load(name, verbose=True)`` adds ``-Xptxas=-v``, prints what
+the compiler says (registers, shared memory and spills per kernel) and
+keeps it in ``PTXAS[name]``.  ``--fmad=false`` keeps every
 ``a*b+c`` a rounded multiply and a rounded add, as the reference's
 interpret mode and the plain PyTorch versions compute them, so the
 triangle tests agree at shared edges.  A missing ``nvcc`` or a failed
@@ -36,6 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LOCK = threading.Lock()
 _NAME_LOCKS: dict[str, threading.Lock] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
+PTXAS: dict[str, str] = {}   # name -> the compiler's -Xptxas=-v output
 
 
 def _nvcc() -> str:
@@ -115,7 +117,8 @@ def load(name: str, verbose: bool = False) -> ctypes.CDLL:
                 raise RuntimeError(f"nvcc failed for {name}.cu:\n"
                                    f"{res.stdout}\n{res.stderr}")
             if verbose and (res.stdout or res.stderr):
-                print(res.stdout + res.stderr, flush=True)
+                PTXAS[name] = res.stdout + res.stderr
+                print(PTXAS[name], flush=True)
             os.replace(tmp, out)
         lib = ctypes.CDLL(out)
         _LIBS[name] = lib

@@ -13,9 +13,13 @@ buckets of a grid of cells of twice the largest radius, a stable sort
 orders them by bucket, and each visible point scans the <= 8 cells its
 ball overlaps, at most K_CAP photons a cell (the overflow is counted in
 ``dropped``).  The scan is the range query of ``ops/photon_kernel.py``
-(K4, a CUDA kernel on the card); the BSDF evaluation of the pairs it
-finds is ``bsdf.evaluate`` in batches of at most PAIR_CHUNK pairs, summed
-in slot order.  Both passes traverse the BVH (K2) whatever the accel.
+(K4, CUDA kernels on the card), which lists the (point, photon) pairs in
+the reference's slot order; the BSDF evaluation of the pairs is
+``bsdf.evaluate`` in batches of at most PAIR_CHUNK pairs, added to each
+point's flux with ``index_add_``: on the CPU in pair order, as the
+reference's loop adds them, on the card by atomics in no fixed order (so
+there Phi may differ from the CPU's in its last bits).  Both passes
+traverse the BVH (K2) whatever the accel.
 """
 
 from __future__ import annotations
@@ -221,18 +225,20 @@ def _gather(vp, ph_p, ph_pow, ph_wi, ph_ok, radius, grid_origin, cell):
     -> (Phi (N,3) with the point's beta and f, M (N,), dropped ())."""
     m, h_sorted, order = photon_map(ph_p, ph_ok, grid_origin, cell)
     lo_c, hi_c = cell_ranges(vp, radius, grid_origin, cell)
-    slots, M, dropped = photon_kernel.photon_query(
+    pair_point, pair_photon, M, dropped = photon_kernel.photon_query(
         lo_c, hi_c, vp["valid"], vp["p"], radius * radius, h_sorted,
         ph_p[order], m)
     t_f, b_f, ns = vp["frame"]
     wo_l = vm.to_local(vp["wo"], t_f, b_f, ns)
     Phi = torch.zeros_like(vp["p"])
-    # the pairs in row-major (point, slot) order: a point's photons are
-    # summed in slot order, as the reference's loop adds them
-    n_idx, k_idx = torch.nonzero(slots >= 0, as_tuple=True)
+    # the pairs in (point, slot) order; index_add_ sums a point's photons
+    # in that order on the CPU, as the reference's loop adds them, and by
+    # atomics on the card
+    n_idx = pair_point.long()
+    ph_idx = order[pair_photon.long()]
     for c0 in range(0, n_idx.shape[0], PAIR_CHUNK):
         n_c = n_idx[c0:c0 + PAIR_CHUNK]
-        ph = order[slots[n_c, k_idx[c0:c0 + PAIR_CHUNK]].long()]
+        ph = ph_idx[c0:c0 + PAIR_CHUNK]
         params = bsdflib.map_params(lambda x: x[n_c], vp["params"])
         wi_l = vm.to_local(ph_wi[ph], t_f[n_c], b_f[n_c], ns[n_c])
         f, _ = bsdflib.evaluate(params, wo_l[n_c], wi_l)

@@ -17,7 +17,7 @@ identical on a soup and on atrium (scenes/atrium_motion.pbrt for the
 motion variant, and a soup whose static and moving triangles are split
 from its sub-keyframes by build_motion_split_np; on atrium given as two
 equal keyframes it equals the static kernel).  The photon
-gather's range query (K4) against photon_query_plain: the slot table, M
+gather's range query (K4) against photon_query_plain: the pair list, M
 and dropped identical.  GPU
 renders against the CPU render: test_golden's criterion.  The train step on
 the card against the CPU step: see its docstring.
@@ -588,18 +588,30 @@ def _photon_query_inputs(dev):
 
 
 def test_photon_gather_kernel_matches_plain():
-    """K4 against its plain version: the slot table, M and dropped identical
-    on random points and photons with an overfull cell, negative cells and
-    a shared bucket."""
+    """K4 against its plain version: the pair list, M and dropped identical
+    on random points and photons with an overfull cell (point 1: more than
+    32 photons in one cell), negative cells and a shared bucket; then with
+    radii of 1e-4 over the same buckets, where no pair passes."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from pbrt_v3_iile_tpu_torch.ops import photon_kernel as K4
 
+    names = ("pair_point", "pair_photon", "M", "dropped")
     args = _photon_query_inputs(torch.device("cuda"))
     got = K4.photon_query_cuda(*args)
     want = K4.photon_query_plain(*args)
     torch.cuda.synchronize()
-    for name, a, b in zip(("slots", "M", "dropped"), got, want):
+    for name, a, b in zip(names, got, want):
         assert torch.equal(a, b), name
-    assert int(got[2].sum()) > 0 and int(got[1].max()) > 32
+    assert int(got[3].sum()) > 0 and int(got[2].max()) > 32
+    assert int(got[3][1]) > 0          # point 1's overfull cell
     assert (args[0] < 0).any()
+    # no pair: the same photon map, every ball 1e-4 across
+    tiny = list(args)
+    tiny[4] = torch.full_like(args[4], 1e-8)
+    got = K4.photon_query_cuda(*tiny)
+    want = K4.photon_query_plain(*tiny)
+    torch.cuda.synchronize()
+    assert got[0].shape == (0,)
+    for name, a, b in zip(names, got, want):
+        assert torch.equal(a, b), name

@@ -9,8 +9,14 @@
   visible points and 4,096 photons whose data holds an overfull cell (>
   K_CAP photons), cells at negative coordinates and two neighbour cells of
   one point that hash to one bucket: Phi within 1e-6 of its largest
-  value, M and dropped equal; the range query's slot table is consistent
-  with M and names only photons within each point's radius;
+  value, M and dropped equal; the range query's pair list is consistent
+  with M, in point order, and names only photons within each point's
+  radius;
+- the range query's plain version (``photon_query_plain``) against the
+  slot table the kernel wrote before its pair list (``_slot_table``, kept
+  here as the yardstick), compacted by ``nonzero``: the pairs, M and
+  dropped bit for bit, also with no pair, no point, no valid photon and
+  no photon; its bucket-start table against ``searchsorted``;
 - the 16^2 atrium golden of ``tools/make_bidir_golden.py`` (radius 0.05,
   4 iterations) by tests/test_golden.py's criterion, the photon-cell
   overflow count within 1% of the reference's.
@@ -157,25 +163,142 @@ def test_gather_matches_jax():
     assert np.abs(to_np(Phi_t) - Phi_j).max() <= 1e-6 * np.abs(Phi_j).max()
     assert (np.asarray(M_j) > 0).sum() > 30
 
-    # the range query itself: its slots agree with M and lie in the radius
+    # the range query itself: its pairs agree with M and lie in the radius
     m, h_sorted, order = tsppm.photon_map(tt(x["ph_p"]), tt(x["ph_ok"]),
                                           tt(x["origin"]), torch.tensor(x["cell"]))
     lo_c, hi_c = tsppm.cell_ranges(vp_t, tt(x["radius"]), tt(x["origin"]),
                                    torch.tensor(x["cell"]))
     assert (lo_c < 0).any()
-    slots, M, dropped = photon_kernel.photon_query(
+    pair_point, pair_photon, M, dropped = photon_kernel.photon_query(
         lo_c, hi_c, vp_t["valid"], vp_t["p"], tt(x["radius"]) ** 2, h_sorted,
         tt(x["ph_p"])[order], m)
-    assert slots.shape == (256, 8 * photon_kernel.K_CAP)
-    np.testing.assert_array_equal((slots >= 0).sum(1).numpy(), to_np(M))
-    n, k = torch.nonzero(slots >= 0, as_tuple=True)
-    src = order[slots[n, k].long()]
+    assert pair_point.dtype == pair_photon.dtype == torch.int32
+    n = pair_point.long()
+    np.testing.assert_array_equal(
+        torch.bincount(n, minlength=256).numpy(), to_np(M))
+    assert bool((n[1:] >= n[:-1]).all())
+    src = order[pair_photon.long()]
     d2 = ((tt(x["ph_p"])[src] - vp_t["p"][n]) ** 2).sum(-1)
     assert bool((d2 <= tt(x["radius"])[n] ** 2 * (1 + 1e-5)).all())
     assert bool(tt(x["ph_ok"])[src].all())
     assert int(dropped.sum()) == int(d_j)
     # the shared bucket is visited once: point 7 counts each photon once
-    assert len(set(src[n == 7].tolist())) == int((n == 7).sum())
+    assert len(set(src[n == 7].tolist())) == int((n == 7).sum()) > 0
+
+
+def _slot_table(lo_c, hi_c, valid, vp_p, r2, h_sorted, p_sorted, m):
+    """The range query as an (N, 8 * K_CAP) slot table (slot o * K_CAP + k:
+    the sorted index of the k-th photon of the point's o-th cell offset
+    within its radius, or -1), M and dropped: the form the kernel had
+    before its pair list, written apart from photon_query_plain as its
+    yardstick."""
+    K_CAP = photon_kernel.K_CAP
+    N = lo_c.shape[0]
+    Pn = h_sorted.shape[0]
+    ks = torch.arange(K_CAP, dtype=torch.int64)
+    slots, seen = [], []
+    M = torch.zeros(N, dtype=torch.float32)
+    dropped = torch.zeros(N, dtype=torch.int32)
+    for ox in range(2):
+        for oy in range(2):
+            for oz in range(2):
+                cc = lo_c + torch.tensor([ox, oy, oz], dtype=torch.int32)
+                in_range = torch.all(cc <= hi_c, dim=-1) & valid
+                hc = photon_kernel.hash_cells(cc, m)
+                for h_prev, in_prev in seen:
+                    in_range = in_range & ~(in_prev & (hc == h_prev))
+                seen.append((hc, in_range))
+                lo = torch.searchsorted(h_sorted, hc).to(torch.int64)
+                hi = torch.searchsorted(h_sorted, hc, right=True).to(torch.int64)
+                hi_cap = torch.minimum(hi, lo + K_CAP)
+                dropped = dropped + torch.where(in_range, hi - hi_cap, 0).to(torch.int32)
+                j = lo[:, None] + ks[None, :]                       # (N, K_CAP)
+                take = in_range[:, None] & (j < hi_cap[:, None])
+                pp = (p_sorted[torch.clamp(j, 0, Pn - 1)] if Pn
+                      else torch.zeros(N, K_CAP, 3))
+                dv = pp - vp_p[:, None, :]
+                d2 = (dv[..., 0] * dv[..., 0] + dv[..., 1] * dv[..., 1]) \
+                    + dv[..., 2] * dv[..., 2]
+                near = take & (d2 <= r2[:, None])
+                slots.append(torch.where(near, j, -1).to(torch.int32))
+                M = M + near.sum(dim=1).to(torch.float32)
+    return torch.cat(slots, dim=1), M, dropped
+
+
+def _query_args(x, keep=None, ph_ok=None):
+    """photon_query's arguments for _gather_inputs' data; keep: the visible
+    points kept; ph_ok: the photons' validity in place of x's."""
+    cell = torch.tensor(x["cell"])
+    ok = tt(x["ph_ok"]) if ph_ok is None else torch.as_tensor(ph_ok)
+    m, h_sorted, order = tsppm.photon_map(tt(x["ph_p"]), ok, tt(x["origin"]),
+                                          cell)
+    keep = slice(None) if keep is None else keep
+    vp = dict(p=tt(x["vp_p"])[keep], valid=tt(x["valid"])[keep])
+    radius = tt(x["radius"])[keep]
+    lo_c, hi_c = tsppm.cell_ranges(vp, radius, tt(x["origin"]), cell)
+    return (lo_c, hi_c, vp["valid"], vp["p"], radius * radius, h_sorted,
+            tt(x["ph_p"])[order].contiguous(), m)
+
+
+@pytest.mark.parametrize("case", ["gather_inputs", "no_pair", "no_point",
+                                  "no_valid_photon", "no_photon"])
+def test_photon_query_plain_matches_slot_table(case):
+    """photon_query_plain's pair list is the slot table's nonzero
+    compaction bit for bit, with M and dropped equal: on _gather_inputs
+    (an overfull cell, negative cells, a shared bucket), on points whose
+    balls hold no photon, with no point, with every photon invalid and
+    with no photon."""
+    x = _gather_inputs()
+    keep = ph_ok = None
+    if case == "no_pair":
+        # cells of 2e-4: the visited buckets hold only other cells' photons
+        x["radius"] = np.full_like(x["radius"], 1e-4)
+        x["cell"] = np.float32(2e-4)
+    elif case == "no_point":
+        keep = slice(0, 0)
+    elif case == "no_valid_photon":
+        ph_ok = np.zeros(x["ph_p"].shape[0], bool)
+    elif case == "no_photon":
+        for k in ("ph_p", "ph_ok"):
+            x[k] = x[k][:0]
+    args = _query_args(x, keep, ph_ok)
+    pair_point, pair_photon, M, dropped = photon_kernel.photon_query_plain(*args)
+    slots, M_t, dropped_t = _slot_table(*args)
+    n, k = torch.nonzero(slots >= 0, as_tuple=True)
+    assert pair_point.dtype == pair_photon.dtype == torch.int32
+    assert torch.equal(pair_point, n.to(torch.int32))
+    assert torch.equal(pair_photon, slots[n, k])
+    assert torch.equal(M, M_t) and torch.equal(dropped, dropped_t)
+    if case == "gather_inputs":
+        assert int(M.max()) > photon_kernel.K_CAP and int(dropped.sum()) > 0
+        assert (args[0] < 0).any()
+    if case == "no_point":
+        assert pair_point.shape == (0,) and M.shape == (0,)
+    if case != "gather_inputs":
+        assert pair_point.shape == (0,)
+    if case in ("no_valid_photon", "no_photon"):
+        assert int(dropped.sum()) == 0
+
+
+def test_bucket_start_plain_matches_searchsorted():
+    """The bucket-start table against searchsorted: start[b] is the first
+    sorted index whose bucket is >= b and start[b + 1] the first past it,
+    with empty buckets, the sentinel m, m = 2 and every photon invalid."""
+    rng = np.random.default_rng(5)
+    cases = [np.sort(rng.integers(0, 64, 200)),                 # empty buckets
+             np.sort(np.r_[rng.integers(0, 64, 150), [64] * 50]),  # sentinel 64
+             np.array([0, 0, 1, 2, 2]),                          # m = 2
+             np.full(7, 2),                                      # all invalid
+             np.zeros(0, np.int64)]                              # no photon
+    for h in cases:
+        m = 2 if h.size == 0 or h.max() <= 2 else 64
+        h_sorted = torch.as_tensor(h, dtype=torch.int32)
+        start = photon_kernel.bucket_start_plain(h_sorted, m)
+        b = torch.arange(m + 1, dtype=torch.int32)
+        assert start.dtype == torch.int32 and start.shape == (m + 1,)
+        assert torch.equal(start.long(), torch.searchsorted(h_sorted, b))
+        assert torch.equal(start[1:].long(),
+                           torch.searchsorted(h_sorted, b[:-1], right=True))
 
 
 def test_sppm_golden16():
