@@ -31,8 +31,8 @@ Phases (one line each):
      path).  Kernel launch counts and the calls of the torch cull
      (per_ray_cull, which must make none) are read around each path: the
      clusters path must launch both kernels, the bvh path K2 and not K1;
-  7. IILE (integrators/iispt.py::render_iile, the pretrained IISPTNet),
-     before any profiler session: (a) atrium 128^2, accel "bvh", 2
+  7. IILE (integrators/iispt.py::render_iile, the pretrained IISPTNet):
+     (a) atrium 128^2, accel "bvh", 2
      indirect tasks, 4 direct passes, 32^2 hemispheres, seed 0, held
      against the JAX package's CPU render of the same settings
      (tests/golden/iile_atrium128_bvh_t2_d4_s0.npz, made by
@@ -58,8 +58,7 @@ Phases (one line each):
      device memory peak, the PSNR against the 320-spp reference
      (tests/golden/atrium_gt_oracle_path320_512.npz), and the U-Net alone
      on one task's 121 probes by CUDA events against its bound;
-  9. training (ml/, run after phase 7 and before phase 8's profiler
-     sessions): (a) the port's generate_examples on scenes/interior_v1.pbrt
+  9. training (ml/, run after phase 7): (a) the port's generate_examples on scenes/interior_v1.pbrt
      (16 probes of 32^2, 4 ground-truth samples, seed 0) against the JAX
      package's (tests/golden/train_interior_v1_bvh_h32_g4_s4_s0.npz, made
      by tools/make_train_golden.py): valid identical, each of p, d, n and
@@ -85,8 +84,7 @@ Phases (one line each):
      trained net, its PSNR beside the pretrained net's; (f) the
      evaluation statistics of the pretrained net on 64 held-out atrium
      probes, printed;
-  10. scenes as pbrt-v3 writes them (run after phase 9 and before phase
-     8's profiler sessions): (a) atrium with its Sampler line removed
+  10. scenes as pbrt-v3 writes them (run after phase 9): (a) atrium with its Sampler line removed
      (pbrt's default, halton) at 128^2, 64 spp, seed 3, on clusters,
      then maxmindist (64 pixel samples) at the same settings, each
      against the C++ image at the atrium-path tolerances, K1 launched;
@@ -102,9 +100,7 @@ Phases (one line each):
      512^2, three passes each of halton, ambientocclusion and whitted
      on clusters (ms a pass, Mrays/s as path.py counts rays, launches a
      pass) and the host seconds of the MaxMinDist search at 16 spp;
-  11. materials and transport (run after phase 10 and before phase 8's
-     profiler sessions; its own profiled passes run after phase 8's
-     timed passes): (a) on the card, at the JAX tests' own tolerances:
+  11. materials and transport (run after phase 10): (a) on the card, at the JAX tests' own tolerances:
      Beer-Lambert through homogeneous fog (tests/test_media.py's
      ABSORB_SCENE, rtol 0.06) and through a grid medium
      (GRID_ABSORB_SCENE, 5 exp(-1.75), rtol 0.08), the hair white furnace
@@ -122,11 +118,8 @@ Phases (one line each):
      clusters, with and without its smoke: three passes each (ms,
      Mrays/s as path.py counts rays, the probe rays among them, launches
      a pass, and the traversal calls and launches of the last pass by
-     site: closest-hit, shadow, BSSRDF probe, BSSRDF exit shadow), then
-     one profiled pass each with the delta- and ratio-tracking loops'
-     calls, launches, device and host ms;
-  12. cameras and aggregates (run after phase 11 and before phase 8's
-     profiler sessions): (a) K2's motion variant on the scene's motion
+     site: closest-hit, shadow, BSSRDF probe, BSSRDF exit shadow);
+  12. cameras and aggregates (run after phase 11): (a) K2's motion variant on the scene's motion
      tables (a BVH over the static triangles, one over the moving ones
      per keyframe segment) against its plain version
      (bvh_traverse_motion_plain) on two 65,536-ray waves
@@ -152,8 +145,7 @@ Phases (one line each):
      path.py counts rays, launches a pass).  ``--cameras-only`` runs
      phases 1-5 and 12 with the timing of its two kernels, and stops
      without a result line;
-  13. bidirectional and photon transport (run after phase 12 and before
-     phase 8's profiler sessions): (a) the photon gather's range query
+  13. bidirectional and photon transport (run after phase 12): (a) the photon gather's range query
      (K4) against its plain version on the first SPPM iteration of atrium
      512^2 (the file's depth 6, radius 0.05, one photon a pixel): the pair
      list, M and dropped identical; the whole gather (K4 and the batched
@@ -184,12 +176,11 @@ Phases (one line each):
      launches, memory peak), one SPPM iteration (camera pass, photon pass
      and gather: ms, launches, dropped), Metropolis' bootstrap and 32
      chain steps (ms and launches a step, the estimate for the file's 100
-     mutations per pixel; phase 8 profiles one step), one 128^2 grad
+     mutations per pixel), one 128^2 grad
      call (ms, memory peak).
      ``--bidir-only`` runs phases 1-3 and 13 and stops without a result
      line;
-  14. sharding on torch.distributed (run after phase 13 and before phase
-     8's profiler sessions), on a process group of 1 on NCCL (a file store
+  14. sharding on torch.distributed (run after phase 13), on a process group of 1 on NCCL (a file store
      under build/): (a) the row-sharded pass of atrium 512^2 at depth 5
      (parallel/sharded.py::sharded_render_pass) at 1 and 4 shards on
      clusters, and at 4 on bvh, bit for bit the render chunked at 512 and
@@ -212,6 +203,21 @@ Phases (one line each):
      tools bsdftest on the card against its CPU result, within 1e-4;
      ``--sharding-only`` runs phases 1-5 and 14 and stops without a result
      line;
+  15. the port alone (run after phase 14): (a) both committed nets
+     (pbrt_v3_iile_tpu_torch/ml/pretrained: iispt_pretrained.npz, the
+     default, and iispt_trained_h100.npz, made on an H100 by cli/train.py
+     at its defaults) loaded, each run on phase 9's 121 probes, every
+     output finite; (b) the 128^2 IILE render of (a) of phase 7 on bvh
+     with each net, both finite, K2 launched and K1 not, each net's PSNR
+     against the C++ image of phase 6 and its evaluation statistics on
+     phase 9's 64 atrium probes printed; (c) the port's bundle
+     (cli/package.py) built under build/, then its pbrt-iile-torch
+     launcher run from a directory outside the checkout, so that only the
+     bundle can be imported: IILE on atrium at --quick (128^2), one
+     task, one direct pass, the bundle's default net, its kernels built
+     into the bundle; exit 0, a finite image, kernel libraries in the
+     bundle's build directory.  ``--alone-only`` runs phases 1-3, 9 and
+     15 and stops without a result line;
   8. timing (printed, no threshold): each kernel and the torch
      candidate tables K1 no longer needs, at the main-path shapes, by
      CUDA events (each plain version on the call of phase 4, 5 or 12
@@ -219,15 +225,12 @@ Phases (one line each):
      from this run's inputs (K3 on atrium's bounce wave, K2-motion on
      atrium_motion's); K2 at every wave of a bvh pass; the atrium 512^2 depth-5 compacted
      pass as bench.py configures it, with each accel, passes in turns, in
-     Mrays/s counted as path.py counts rays, the kernel launches per pass,
-     and one profiled pass on clusters: device-busy ms and idle share;
-     phase 11's profiled pass with the smoke; one of phase 13's MLT
-     chain steps; then the first task of the
-     512^2 IILE render, and last 10 train steps of phase 9, each
-     unprofiled and then profiled.
+     Mrays/s counted as path.py counts rays, the kernel launches per pass.
+     The profiler sessions (device-busy ms and idle share of the pass,
+     the volpath pass, an MLT step, an IILE task and 10 train steps) are
+     tools/profile_torch.py.
 Prints the kernel JSON line, the device line, and as its last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero with no result.
-Long output (the profiler tables) goes to files in OUT_DIR.
 """
 
 from __future__ import annotations
@@ -850,7 +853,6 @@ def train_phase(dev, smi, K1, K2, atrium, pretrained_img):
     check(np.isfinite(losses).all(), "non-finite training loss")
     check(last < 0.9 * first,
           f"training loss did not fall: first 20 {first}, last 20 {last}")
-    res["train_step"] = lambda: state["step"](x, y)
 
     # (e) the checkpoints, each reloaded, against the net in memory on
     # 121 probes of (b)
@@ -900,7 +902,7 @@ def train_phase(dev, smi, K1, K2, atrium, pretrained_img):
     finite = all(bool(np.isfinite(im).all()) for im in (c, d, i))
     line("train_render_atrium128_bvh", wall_seconds=secs, launches=n,
          finite=finite, psnr_trained=psnr(c, ref),
-         psnr_pretrained=psnr(pretrained_img, ref),
+         psnr_pretrained=None if pretrained_img is None else psnr(pretrained_img, ref),
          means=[float(c.mean()), float(d.mean()), float(i.mean())])
     check(finite, "non-finite image from the trained net")
 
@@ -916,8 +918,103 @@ def train_phase(dev, smi, K1, K2, atrium, pretrained_img):
     line("train_evalstats_atrium", probes=int(coords.shape[0]),
          valid=int(raw["valid"].sum()), gt_spp=16, wall_seconds=secs,
          means=stats["means"], p_values=stats["p_values"])
+    res["probes121"], res["atrium_probes"] = x121, raw
     line("train_phase", wall_seconds=time.time() - t_phase)
     return res
+
+
+ALONE_FILM_ARGS = ["--quick", "--iileIndirect", "1", "--iileDirect", "1"]
+
+
+def alone_phase(dev, smi, K1, K2, train):
+    """Phase 15: the port alone.  (a) both committed nets on phase 9's 121
+    probes, (b) phase 7's 128^2 IILE render on bvh with each net and their
+    evaluation statistics on phase 9's atrium probes, (c) the bundle's
+    launcher renders IILE on the card with only the bundle importable.
+    train: phase 9's result (its probes)."""
+    import hashlib
+
+    from pbrt_v3_iile_tpu_torch.cli import package
+    from pbrt_v3_iile_tpu_torch.integrators import iispt
+    from pbrt_v3_iile_tpu_torch.ml import evalstats
+    from pbrt_v3_iile_tpu_torch.models import iisptnet, weights
+    from pbrt_v3_iile_tpu_torch.scene import api as apilib
+    from pbrt_v3_iile_tpu_torch.utils import image as imglib
+
+    t_phase = time.time()
+    nets = {"committed": weights.DEFAULT_NPZ, "trained_h100": weights.TRAINED_NPZ}
+
+    # (a) each net on phase 9's 121 probes
+    for name, path in nets.items():
+        check(os.path.exists(path), f"{name}: {path} is missing")
+        net = weights.load_iisptnet(path, device=dev)
+        with torch.no_grad(), iisptnet.fp32_convolutions(dev):
+            y = net(train["probes121"])
+        finite = bool(torch.isfinite(y).all())
+        with open(path, "rb") as f:
+            sha = hashlib.sha256(f.read()).hexdigest()
+        line(f"alone_net_{name}", file=os.path.relpath(path, REPO), sha256=sha,
+             bytes=os.path.getsize(path), probes=int(y.shape[0]), finite=finite,
+             y_mean=float(y.mean()), y_max=float(y.abs().max()))
+        check(finite, f"{name}: non-finite net output on 121 probes")
+
+    # (b) the 128^2 IILE render of phase 7 (a) with each net, and the
+    # evaluation statistics on phase 9's 64 atrium probes
+    sd128 = apilib.load_scene(os.path.join(REPO, "scenes", "atrium.pbrt"))
+    sd128.film.x_resolution = sd128.film.y_resolution = 128
+    ref = np.load(os.path.join(REPO, "tests", "golden", ORACLE[0])).astype(np.float64)
+    raw = train["atrium_probes"]
+    launches = {}
+    for name, path in nets.items():
+        (c, d, i, st), secs, n = run_counted(lambda: iispt.render_iile(
+            sd128, weights=path, accel="bvh", device=dev, **IILE_SMALL), K1, K2)
+        finite = all(bool(np.isfinite(im).all()) for im in (c, d, i))
+        stats = evalstats.compare_predictions(raw, weights.load_iisptnet(path, device=dev))
+        line(f"alone_render_atrium128_bvh_{name}", wall_seconds=secs, launches=n,
+             finite=finite, psnr=psnr(c, ref),
+             means=[float(c.mean()), float(d.mean()), float(i.mean())])
+        line(f"alone_evalstats_atrium_{name}", probes=int(raw["valid"].numel()),
+             valid=int(raw["valid"].sum()), gt_spp=16, means=stats["means"],
+             p_values=stats["p_values"])
+        check(finite, f"{name}: non-finite 128^2 IILE image")
+        check(n["bvh_traverse"] > 0 and n["cluster_traverse"] == 0,
+              f"{name}: launches {n}")
+        launches[name] = n
+
+    # (c) the bundle's launcher in a fresh process that can import nothing
+    # but the bundle (its working directory is outside the checkout)
+    bundle = os.path.join(REPO, "build", "bundle_torch")
+    t0 = time.time()
+    package.build_bundle(bundle)
+    build_s = time.time() - t0
+    run_dir = os.path.join(REPO, "build", "bundle_run")
+    os.makedirs(run_dir, exist_ok=True)
+    out = os.path.join(run_dir, "atrium_iile.pfm")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t0 = time.time()
+    r = subprocess.run(
+        [os.path.join(bundle, "pbrt-iile-torch"),
+         os.path.join(REPO, "scenes", "atrium.pbrt"), out,
+         "--integrator", "iispt", *ALONE_FILM_ARGS],
+        cwd=run_dir, env=env, capture_output=True, text=True, timeout=600)
+    secs = time.time() - t0
+    ok = r.returncode == 0 and os.path.exists(out)
+    img = imglib.read_pfm(out) if ok else np.zeros((0,))
+    kernel_dir = os.path.join(bundle, "lib", "build", "torch_kernels")
+    libs = sorted(f for f in os.listdir(kernel_dir) if f.endswith(".so")) \
+        if os.path.isdir(kernel_dir) else []
+    line("alone_bundle_iile", rc=r.returncode, wall_seconds=secs,
+         bundle_build_seconds=build_s, shape=list(img.shape),
+         finite=bool(img.size and np.isfinite(img).all()),
+         mean=float(img.mean()) if img.size else None,
+         kernel_libraries=libs, stderr_tail=r.stderr[-600:] if r.returncode else "")
+    check(ok, f"the bundle's launcher exited {r.returncode}: {r.stderr[-2000:]}")
+    check(img.size > 0 and np.isfinite(img).all() and img.mean() > 0,
+          "the bundle's IILE image")
+    check(any(f.startswith("libcluster_traverse") for f in libs),
+          "the bundle built no cluster kernel of its own")
+    line("alone_phase", wall_seconds=time.time() - t_phase)
+    return launches
 
 
 def scene_from_golden(apilib, z):
@@ -1163,10 +1260,8 @@ def transport_phase(dev, smi, K1, K2):
     """Phase 11: materials and transport.  (a) the analytic gates, (b) the
     JAX goldens on both accels and the CLI, (c) the 512^2 passes of
     atrium_transport with and without its smoke, measured.  Returns the
-    launches a pass of (c), those of (b), and the profile step of (c),
-    which runs after phase 8's timed passes."""
+    launches a pass of (c) and those of (b)."""
     from pbrt_v3_iile_tpu_torch.cli import main as climain
-    from pbrt_v3_iile_tpu_torch.integrators import path as pathlib_
     from pbrt_v3_iile_tpu_torch.integrators import render as renderlib
     from pbrt_v3_iile_tpu_torch.ops import fourierbsdf as fblib
     from pbrt_v3_iile_tpu_torch.ops import hair as hairlib
@@ -1297,7 +1392,7 @@ def transport_phase(dev, smi, K1, K2):
     # (c) measured: atrium_transport at 512^2, the file's depth, clusters
     key = threefry.prng_key(0)
     text = open(scene_file).read()
-    per_pass, runs = {}, {}
+    per_pass = {}
     for name, feats in (("all", tool.FEATURES),
                         ("no_smoke", [f for f in tool.FEATURES if f != "smoke"])):
         sd = apilib.load_scene_string(tool.variant(text, feats),
@@ -1326,61 +1421,9 @@ def transport_phase(dev, smi, K1, K2):
              rays=rays, mrays_per_s=[n / t / 1e6 for n, t in zip(rays, times)],
              launches_per_pass=per_pass[name], sites_last_pass=sites,
              power=smi)
-        runs[name] = (run, scene, cam, float(np.median(times)))
-
-    def profile(profiled):
-        """One profiled pass with the smoke, with the tracking loops' spans:
-        their calls, kernel launches, device and host ms."""
-        from torch.autograd import DeviceType
-
-        inner = (pathlib_._delta_track, pathlib_._ratio_track)
-
-        def spanned(span, fn):
-            def wrap(*a, **kw):
-                with torch.profiler.record_function(span):
-                    return fn(*a, **kw)
-            return wrap
-
-        pathlib_._delta_track = spanned("delta_track", inner[0])
-        pathlib_._ratio_track = spanned("ratio_track", inner[1])
-        try:
-            # the pass with the smoke: the only one with tracking loops
-            for name in ("all",):
-                run, scene, cam, med_s = runs[name]
-                prof = profiled(f"profile_transport512_{name}",
-                                lambda: float(run(scene, cam, key, 4)[0].sum()),
-                                med_s, f"profile_transport512_{name}.txt",
-                                ("profiled_pass_ms", "median_pass_ms"),
-                                spans=("delta_track", "ratio_track"))
-                spans = {}
-                for sp in ("delta_track", "ratio_track"):
-                    host = [e for e in prof.events() if e.name == sp
-                            and e.device_type == DeviceType.CPU]
-                    ranges = [e for e in prof.events() if e.name == sp
-                              and e.device_type == DeviceType.CUDA]
-                    launches, stack = 0, [c for e in host for c in e.cpu_children]
-                    while stack:
-                        e = stack.pop()
-                        launches += e.name in ("cudaLaunchKernel",
-                                               "cudaLaunchKernelExC",
-                                               "cuLaunchKernel",
-                                               "cuLaunchKernelEx")
-                        stack.extend(e.cpu_children)
-                    # kernel time launched inside the span, the span's
-                    # extent on the device timeline, and its host time
-                    spans[sp] = dict(
-                        calls=len(host), launches=launches,
-                        device_kernel_ms=sum(e.device_time_total
-                                             for e in host) / 1e3,
-                        device_span_ms=sum(e.time_range.elapsed_us()
-                                           for e in ranges) / 1e3,
-                        host_ms=sum(e.cpu_time_total for e in host) / 1e3)
-                line(f"profile_transport512_{name}_tracking", power=smi, **spans)
-        finally:
-            pathlib_._delta_track, pathlib_._ratio_track = inner
 
     line("transport_phase", wall_seconds=time.time() - t_phase)
-    return dict(per_pass=per_pass, launches_128=launches_128, profile=profile)
+    return dict(per_pass=per_pass, launches_128=launches_128)
 
 
 # phase 12: cameras and aggregates.  K3's and K2-motion's fp32 operations,
@@ -1740,8 +1783,7 @@ def bidir_phase(dev, smi, K1, K2, atrium):
     gather against the plain path, K4's time and bound; (b) the JAX goldens
     of tools/make_bidir_golden.py at 128^2; (c) the 512^2 readings.
     atrium: phase 3's (sd, scene, cam) at 512^2.  Returns K4's entry of the
-    kernels line (its launches: the 128^2 SPPM render's) and the MLT
-    profile that phase 8 runs after its timing."""
+    kernels line (its launches: the 128^2 SPPM render's)."""
     from pbrt_v3_iile_tpu_torch.cli import main as climain
     from pbrt_v3_iile_tpu_torch.integrators import grad as gradlib
     from pbrt_v3_iile_tpu_torch.integrators import mlt as mltlib
@@ -2106,13 +2148,6 @@ def bidir_phase(dev, smi, K1, K2, atrium):
     check(bool(torch.isfinite(mlt_film).all()), "mlt512: non-finite film")
     no_k1("mlt512", launches)
 
-    def profile_mlt(profiled):
-        """Phase 8, after its timing: one chain step under the profiler
-        (its device_events are the kernels a step launches)."""
-        profiled("profile_mlt512_step", lambda: mlt_steps(chain, step_keys[:1]),
-                 step_ms / 1e3, "profile_mlt512_step.txt",
-                 ("profiled_step_ms", "unprofiled_step_ms"))
-
     sd128 = apilib.load_scene(os.path.join(REPO, "scenes", "atrium.pbrt"))
     sd128.film.x_resolution = sd128.film.y_resolution = 128
     cam128 = camlib.make_camera(sd128.camera, sd128.film, dev)
@@ -2137,7 +2172,7 @@ def bidir_phase(dev, smi, K1, K2, atrium):
                 kernel_launches_per_query=k4_kernel_launches,
                 registers=k4_regs, pairs=pairs, gather_ms=gather_ms,
                 gather_peak_mb=gather_mb,
-                launches_per_sppm_iteration=l_gather["photon_gather"]), profile_mlt
+                launches_per_sppm_iteration=l_gather["photon_gather"])
 
 
 # phase 14: sharding on torch.distributed, world 1 on NCCL
@@ -2160,7 +2195,7 @@ BSDF_CARD_ATOL = 1e-4   # bsdftest's reflectances, card against CPU: a
 
 def sharding_phase(dev, smi, K1, K2, atrium, waves):
     """Phase 14: the sharded paths of parallel/ on a world of 1 on NCCL
-    (a file store under build/), before phase 8's profiler sessions.
+    (a file store under build/).
     atrium: phase 3's (sd, scene, cam) at 512^2; waves: phase 4's.
     Returns the launch counts of the sharded paths."""
     import torch.distributed as dist
@@ -2377,6 +2412,7 @@ def main():
     cameras_only = "--cameras-only" in sys.argv[1:]
     bidir_only = "--bidir-only" in sys.argv[1:]
     sharding_only = "--sharding-only" in sys.argv[1:]
+    alone_only = "--alone-only" in sys.argv[1:]
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -2430,8 +2466,14 @@ def main():
          kd_leaves_over_8=int((kd_leaf & (scene.kd_meta >> 2 > kdtree.MAX_PRIMS)
                                ).sum()))
 
+    if alone_only:   # phases 1-3, 9 and 15
+        train = train_phase(dev, smi, K1, K2, (sd, scene, cam), None)
+        alone_phase(dev, smi, K1, K2, train)
+        line("alone_only", wall_seconds=time.time() - t_start)
+        return
+
     if bidir_only:   # phases 1-3 and 13
-        k4, _ = bidir_phase(dev, smi, K1, K2, (sd, scene, cam))
+        k4 = bidir_phase(dev, smi, K1, K2, (sd, scene, cam))
         line("bidir_only", k4=k4, wall_seconds=time.time() - t_start)
         return
 
@@ -2624,32 +2666,33 @@ def main():
     check(launches_bvh["cluster_traverse"] == 0, "K1 launched on the bvh path")
     check(cllib.CALLS == 0, "the bvh path called the torch cull")
 
-    # ---- 7. IILE, before any profiler session ----
+    # ---- 7. IILE ----
     iile = iile_phase(dev, scene_path, smi, K1, K2)
 
-    # ---- 9. training, before any profiler session ----
+    # ---- 9. training ----
     train = train_phase(dev, smi, K1, K2, (sd, scene, cam), iile["bvh_combined"])
 
-    # ---- 10. scenes as pbrt-v3 writes them, before any profiler session ----
+    # ---- 10. scenes as pbrt-v3 writes them ----
     scenes_pp = scenes_phase(dev, smi, K1, K2)
 
-    # ---- 11. materials and transport, profiled after phase 8's timing ----
+    # ---- 11. materials and transport ----
     transport = transport_phase(dev, smi, K1, K2)
 
-    # ---- 12. cameras and aggregates, before any profiler session ----
+    # ---- 12. cameras and aggregates ----
     cams = cameras_phase(dev, smi, K1, K2, K3, (sd, scene, cam), waves)
 
-    # ---- 13. bidirectional and photon transport, before any profiler
-    # session ----
-    k4, profile_mlt = bidir_phase(dev, smi, K1, K2, (sd, scene, cam))
+    # ---- 13. bidirectional and photon transport ----
+    k4 = bidir_phase(dev, smi, K1, K2, (sd, scene, cam))
 
-    # ---- 14. sharding on torch.distributed, before any profiler session ----
+    # ---- 14. sharding on torch.distributed ----
     shard = sharding_phase(dev, smi, K1, K2, (sd, scene, cam), waves)
+
+    # ---- 15. the port alone ----
+    alone = alone_phase(dev, smi, K1, K2, train)
 
     # ---- 8. timing, bounds ----
     t_timing = time.time()
-    # the timed passes come first: a profiler session leaves tracing
-    # overhead on the launches that follow it
+
     def pass_fn(accel):
         cfg = renderlib.make_integrator_config(sd, accel=accel, device=dev)
         cfg = cfg.replace(max_depth=5, compact_schedule=renderlib.COMPACT_SCHEDULE)
@@ -2766,82 +2809,6 @@ def main():
          sum_ms=sum(w["ms"] for w in per_wave), power=smi)
     K1.LAUNCHES, K2.LAUNCHES = l1, l2  # timing launches are not main-path ones
 
-    def profiled(name, fn, unprofiled_s, table_file, keys, spans=()):
-        """Device-busy ms of one run of fn under torch.profiler (the rows
-        of device events only: an operator's row repeats the time of the
-        kernels it launched, and the device rows of the record_function
-        spans named in ``spans`` are ranges, not kernels) and the idle
-        share against unprofiled_s; the profiled and unprofiled ms are
-        printed under the names in keys, the profiler's table goes to
-        OUT_DIR/table_file.  Returns the profile."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.time()
-            fn()
-            torch.cuda.synchronize()
-            prof_s = time.time() - t0
-        averages = prof.key_averages()
-        with open(os.path.join(OUT_DIR, table_file), "w") as f:
-            f.write(averages.table(sort_by="cuda_time_total", row_limit=40))
-        evs = [e for e in averages
-               if e.device_type == DeviceType.CUDA and e.key not in spans]
-        dev_us = sum(e.self_device_time_total for e in evs)
-        check(dev_us > 0, "the profiler saw no device time")
-        top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
-        line(name, device_busy_ms=dev_us / 1e3,
-             device_events=sum(e.count for e in evs),
-             **{keys[0]: prof_s * 1e3, keys[1]: unprofiled_s * 1e3},
-             idle_share=1.0 - dev_us / 1e6 / unprofiled_s,
-             idle_share_profiled=1.0 - dev_us / 1e6 / prof_s,
-             top=[(e.key[:60], e.count, round(e.self_device_time_total / 1e3, 3))
-                  for e in top], power=smi)
-        return prof
-
-    # one profiled pass of the main path, on its default accel (the bvh
-    # pass's device time is K2's waves above)
-    t_profiles = time.time()
-    profiled("profile_atrium512_pass_clusters",
-             lambda: float(runs["clusters"](scene, cam, key, n_pass + 1)[0].sum()),
-             float(np.median(res["clusters"]["times"])),
-             "profile_atrium512_clusters.txt",
-             ("profiled_pass_ms", "median_pass_ms"))
-
-    transport["profile"](profiled)
-    profile_mlt(profiled)
-
-    # the first task of the full-width IILE render (4 chunks of 65,536
-    # pixels), timed unprofiled and then profiled
-    from pbrt_v3_iile_tpu_torch.integrators import iispt, schedule
-    from pbrt_v3_iile_tpu_torch.models import weights
-
-    net = weights.load_iisptnet(device=dev)
-    task = schedule.compute_schedule(512, 512, 1)[0]
-    tkey = threefry.fold_in(threefry.prng_key(0), 1000)
-    first_task = lambda: iispt.run_task(scene, cam, sd, net, tkey, task,
-                                        accel="clusters")
-    torch.cuda.synchronize()
-    t0 = time.time()
-    first_task()
-    torch.cuda.synchronize()
-    profiled("profile_iile512_task0", first_task, time.time() - t0,
-             "profile_iile512_task0.txt",
-             ("profiled_task_ms", "unprofiled_task_ms"))
-
-    # 10 full-width train steps of phase 9 (batch 32), unprofiled and then
-    # profiled
-    ten_steps = lambda: [train["train_step"]() for _ in range(10)]
-    torch.cuda.synchronize()
-    t0 = time.time()
-    ten_steps()
-    torch.cuda.synchronize()
-    profiled("profile_train_10_steps", ten_steps, time.time() - t0,
-             "profile_train_10_steps.txt",
-             ("profiled_10_steps_ms", "unprofiled_10_steps_ms"))
-
     kernels = [
         dict(name="cluster_traverse", route="cuda",
              source="pbrt_v3_iile_tpu_torch/csrc/cluster_traverse.cu",
@@ -2889,7 +2856,8 @@ def main():
                  "bvh_traverse"],
              launches_geometry_sharded=shard["geometry"]["bvh_traverse"],
              launches_iile128_sharded=shard["iile"]["bvh_traverse"],
-             launches_dataset_sharded=shard["dataset"]["bvh_traverse"]),
+             launches_dataset_sharded=shard["dataset"]["bvh_traverse"],
+             launches_iile128_bvh_trained_h100=alone["trained_h100"]["bvh_traverse"]),
         dict(name="bvh_traverse_motion", route="cuda",
              source="pbrt_v3_iile_tpu_torch/csrc/bvh_traverse.cu",
              replaces="pbrt_v3_iile_tpu/ops/intersect.py:56",
@@ -2914,8 +2882,7 @@ def main():
                  "kd_traverse"]),
         k4,
     ]
-    line("timing_phase", wall_seconds=time.time() - t_timing,
-         profiles_seconds=time.time() - t_profiles)
+    line("timing_phase", wall_seconds=time.time() - t_timing)
     line("total", wall_seconds=time.time() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

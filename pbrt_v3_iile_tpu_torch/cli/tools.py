@@ -320,9 +320,9 @@ COMMANDS = dict(metrics=cmd_metrics, tonemap=cmd_tonemap, convert=cmd_convert,
 
 def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
-    if not argv:
+    if not argv or argv[0] in ("-h", "--help"):
         print(__doc__)
-        return 1
+        return 0 if argv else 1
     cmd, rest = argv[0], argv[1:]
     if cmd not in COMMANDS:
         print(f"unknown tool {cmd}")

@@ -22,6 +22,18 @@ Named scenes: ``interior_v1..3`` and ``atrium`` (``scenes/``; atrium is
 held out of the default corpus for quality evaluation) and ``box``, a
 Cornell-style box.  The recipe is the reference's: Adam 6e-5, L1,
 batch 32, from a flax-style initialization.
+
+Keys, as ``scripts/train_pretrained.py`` keys them at ``--seed 0``: the
+net is initialized from seed INIT_SEED + seed (the JAX recipe's
+``PRNGKey(1)``; torch draws the distribution of flax's initialization,
+not its bits), and the training rounds, one epoch each, draw their
+batches with ``fold_in(prng_key(TRAIN_SEED + seed), steps done)`` (the
+recipe's ``fold_in(PRNGKey(11), len(losses))``), so the same examples
+give the JAX trainer's batches.  Generation keys scene ``tag`` with
+``fold_in(prng_key(seed), crc32(tag))``: the recipe's
+``PRNGKey(hash(tag))`` changes with each process's string-hash salt.
+Training stops after exactly ``--steps`` steps, where the JAX recipe
+finishes the epoch it is in.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 DEFAULT_WORKDIR = os.path.join(REPO, "build", "iispt_train")
+INIT_SEED, TRAIN_SEED = 1, 11   # scripts/train_pretrained.py's PRNGKey(1), PRNGKey(11)
 
 DEMO_SCENE = """
 LookAt 0 2.5 -6  0 2.5 0  0 1 0
@@ -110,7 +123,7 @@ def gen_scene_examples(tag, sd, key, grid, reps, gt_spp, hemi, workdir,
             if m["valid"][i] and np.isfinite(m["p"][i]).all():
                 out.append({k: m[k][i] for k in "pdnz"})
         log(f"[{tag}] rep {rep + 1}/{reps}: {len(out)} examples "
-            f"({time.time() - t0:.0f}s, accel {accel})")
+            f"({time.time() - t0:.1f}s, accel {accel})")
 
     blob = {"n": np.int32(len(out))}
     for i, ex in enumerate(out):
@@ -172,6 +185,9 @@ def main(argv=None):
     log = lambda msg: print(msg, flush=True)
     key = threefry.prng_key(args.seed)
 
+    t_start = time.time()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     names = [args.scene] if args.scene else args.scenes.split(",")
     raws = []
     for name in names:
@@ -183,18 +199,19 @@ def main(argv=None):
     log(f"dataset: {len(raws)} examples")
 
     state = trainlib.init_training(
-        torch.Generator().manual_seed(args.seed), hemi_size=args.hemi,
-        device=device)
+        torch.Generator().manual_seed(INIT_SEED + args.seed),
+        hemi_size=args.hemi, device=device)
     resume = os.path.join(args.workdir, "train_state.pt")
     done = 0
     if os.path.exists(resume):
         state, done = trainlib.load_state(resume, state)
         log(f"resumed the training state at step {done} from {resume}")
+    train_key = threefry.prng_key(TRAIN_SEED + args.seed)
     losses = []
     t0 = time.time()
     while done < args.steps:
         state, ls = trainlib.train(
-            raws, state, threefry.fold_in(key, 11 + done), max_epochs=1,
+            raws, state, threefry.fold_in(train_key, done), max_epochs=1,
             time_budget_s=1e9, log_every=50, log=log,
             max_steps=args.steps - done)
         if not ls:
@@ -206,11 +223,15 @@ def main(argv=None):
         log(f"steps {done}: loss {np.mean(ls[-20:]):.5f} "
             f"({time.time() - t0:.0f}s)")
     if losses:
-        log(f"loss first {np.mean(losses[:20]):.5f} -> "
-            f"last {np.mean(losses[-20:]):.5f}")
+        secs = time.time() - t0
+        log(f"loss first {float(np.mean(losses[:20]))} -> "
+            f"last {float(np.mean(losses[-20:]))}; {len(losses)} steps in "
+            f"{secs:.1f}s ({len(losses) / secs:.2f} steps/s)")
 
     trainlib.save_pretrained(out, state)
-    log(f"saved {out}")
+    peak = (f", device memory peak {torch.cuda.max_memory_allocated(device) / 1e9:.3f} GB"
+            if device.type == "cuda" else "")
+    log(f"saved {out}: wall {time.time() - t_start:.1f}s{peak}")
 
     if args.render:
         from ..integrators import iispt as iisptlib

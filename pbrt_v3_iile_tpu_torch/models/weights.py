@@ -21,9 +21,14 @@ import torch
 
 from .iisptnet import IISPTNet
 
-DEFAULT_NPZ = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "pbrt_v3_iile_tpu", "ml", "pretrained", "iispt_pretrained.npz")
+PRETRAINED_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "ml", "pretrained")
+# the committed model, byte for byte the JAX package's file of the same
+# relative path; the default of every IILE entry point
+DEFAULT_NPZ = os.path.join(PRETRAINED_DIR, "iispt_pretrained.npz")
+# the same recipe run by this package's trainer on an H100
+# (``cli/train.py`` at its defaults); chosen with ``--weights`` / ``weights=``
+TRAINED_NPZ = os.path.join(PRETRAINED_DIR, "iispt_trained_h100.npz")
 
 
 def _unflatten(flat: dict) -> dict:

@@ -1,6 +1,7 @@
 """IILE parity of the port's host-side pieces against the JAX package:
 the probe transforms, the hemispherical probe camera, the schedule, and
-IISPTNet at full width with the committed pretrained weights.
+IISPTNet at full width with each committed net (the pretrained weights
+and the port's H100-trained ones).
 
 Inputs come from numpy seeds.  Tolerances: transforms and camera
 directions within 1e-6 relative (+1e-6 absolute near zero: the two
@@ -167,12 +168,19 @@ def test_missing_weights_raise(tmp_path):
         tweights.load_iisptnet_npz(os.path.join(tmp_path, "absent.npz"))
 
 
-@pytest.mark.parametrize("shape", [(3, 32, 32, 7), (2, 8, 8, 7)])
-def test_iisptnet_full_width(flax_vars, shape):
+# both committed nets: the default (the JAX package's file) and the one
+# the port trained on an H100, which the JAX package's loader reads
+@pytest.mark.parametrize("shape,npz", [
+    ((3, 32, 32, 7), tweights.DEFAULT_NPZ), ((2, 8, 8, 7), tweights.DEFAULT_NPZ),
+    ((3, 32, 32, 7), tweights.TRAINED_NPZ), ((2, 8, 8, 7), tweights.TRAINED_NPZ)],
+    ids=["shape0", "shape1", "trained_h100-shape0", "trained_h100-shape1"])
+def test_iisptnet_full_width(flax_vars, shape, npz):
     x = np.random.default_rng(6).normal(0.0, 1.0, shape).astype(np.float32)
-    y_ref = np.asarray(jnet.IISPTNet().apply(flax_vars, jnp.asarray(x),
+    variables = (flax_vars if npz == tweights.DEFAULT_NPZ
+                 else jtrain.load_pretrained(npz))
+    y_ref = np.asarray(jnet.IISPTNet().apply(variables, jnp.asarray(x),
                                              train=False))
-    net = tweights.load_iisptnet(device="cpu")
+    net = tweights.load_iisptnet(npz, device="cpu")
     with torch.no_grad():
         y = net(tt(x)).numpy()
     assert y.shape == y_ref.shape
