@@ -13,9 +13,14 @@ Usage:
 
 ``--quick`` renders at a quarter of the resolution (at least 64) and a
 quarter of the samples; ``--stats`` prints the render's stats as JSON
-and the per-stage wall times and counters of ``utils/stats.py`` on
-stderr; ``--filmCheckpoint`` saves the film every ``--checkpointEvery``
-passes and resumes from the file when it exists.
+and the stages and counters of ``utils/stats.py`` on stderr: each
+stage's host time (inclusive, self, calls), taken with no device sync,
+so that a stage's device work may run after it, and the host-device
+syncs (``sync/`` stages, ``syncs/`` counters); the device time of each
+stage comes from a torch.profiler trace, in which every stage is a
+``user_annotation``, joined by stage name; ``--filmCheckpoint`` saves
+the film every ``--checkpointEvery`` passes and resumes from the file
+when it exists.
 
 ``iispt`` renders with IILE and also writes ``iispt_direct.exr`` and
 ``iispt_indirect.exr`` beside the output, printing ``#INDPROGRESS!<f>``
@@ -113,7 +118,7 @@ def main(argv=None):
                     help="compacted-wavefront path loop")
     ap.add_argument("--device", default="cuda", help="torch device")
     ap.add_argument("--stats", action="store_true",
-                    help="print render stats and per-stage times on stderr")
+                    help="print render stats and per-stage host times on stderr")
     ap.add_argument("--quick", action="store_true",
                     help="quarter resolution, a quarter of the samples")
     ap.add_argument("--verbose", action="store_true", help="verbose logging")

@@ -154,10 +154,10 @@ def trace_paths(scene, o0, d0, key, cfg: PathConfig, beta0=None,
     st = _initial_state(scene, o0, d0, beta0)
     aux = {}
     for b in range(cfg.max_depth + 1):
-        st = statslib.timed(f"path/bounce[{b}]", _bounce, scene, st, b, key,
-                            cfg, sample_ctx, collect_aux=collect_aux and b == 0,
-                            time=time,
-                            ub=None if u_prim is None else u_prim[:, b])
+        with statslib.stage(f"path/bounce[{b}]"):
+            st = _bounce(scene, st, b, key, cfg, sample_ctx,
+                         collect_aux=collect_aux and b == 0, time=time,
+                         ub=None if u_prim is None else u_prim[:, b])
         if collect_aux and b == 0:
             aux = dict(distance=st.aux_t, normal=st.aux_n)
     L = torch.where(torch.isfinite(st.L), st.L, torch.zeros_like(st.L))
@@ -215,12 +215,13 @@ def _trace_paths_compact(scene, o0, d0, key, cfg: PathConfig, beta0,
         return st, pix[perm], ctx, None if tm is None else tm[perm], dropped
 
     # presort the primary wave too: every traversal of the pass is presorted
-    st, pix, ctx, tm, dropped = resort(st, pix, ctx, tm, dropped, N, 0)
+    with statslib.stage("path/resort"):
+        st, pix, ctx, tm, dropped = resort(st, pix, ctx, tm, dropped, N, 0)
     aux = {}
     for b in range(cfg.max_depth + 1):
-        st = statslib.timed(f"path/bounce[{b}]", _bounce, scene, st, b, key,
-                            cfg, ctx, presorted=True,
-                            collect_aux=collect_aux and b == 0, time=tm)
+        with statslib.stage(f"path/bounce[{b}]"):
+            st = _bounce(scene, st, b, key, cfg, ctx, presorted=True,
+                         collect_aux=collect_aux and b == 0, time=tm)
         if collect_aux and b == 0:
             # the probe G-buffer back in lane order (the lanes are sorted)
             dist = torch.full((N,), -1.0, dtype=torch.float32, device=dev)
@@ -228,12 +229,14 @@ def _trace_paths_compact(scene, o0, d0, key, cfg: PathConfig, beta0,
             dist[pix] = st.aux_t
             nrm[pix] = st.aux_n
             aux = dict(distance=dist, normal=nrm)
-        out.index_add_(0, pix, torch.where(torch.isfinite(st.L), st.L,
-                                           torch.zeros_like(st.L)))
+        with statslib.stage("path/flush"):
+            out.index_add_(0, pix, torch.where(torch.isfinite(st.L), st.L,
+                                               torch.zeros_like(st.L)))
         if b == cfg.max_depth:
             break
-        st, pix, ctx, tm, dropped = resort(st, pix, ctx, tm, dropped,
-                                           sizes[b + 1], b)
+        with statslib.stage("path/resort"):
+            st, pix, ctx, tm, dropped = resort(st, pix, ctx, tm, dropped,
+                                               sizes[b + 1], b)
     out = torch.where(torch.isfinite(out), out, torch.zeros_like(out))
     return out, dict(aux, rays=st.ray_count, compact_overflow=dropped)
 
@@ -345,7 +348,9 @@ def _track_uniforms(key, steps, N, done):
     uniform(fold_in(key, i), (N, 2)), drawn TRACK_CHECK steps at a time;
     stops before a chunk when every lane of ``done()`` is."""
     for i0 in range(0, steps, TRACK_CHECK):
-        if bool(done().all()):
+        with statslib.sync_point("track_done"):
+            all_done = bool(done().all())
+        if all_done:
             return
         yield from threefry.uniform_folded(key, i0, min(TRACK_CHECK, steps - i0),
                                            (N, 2), done().device)
@@ -432,11 +437,12 @@ def _bounce(scene, st: PathState, bounce: int, key, cfg: PathConfig,
 
     trav = dict(accel=cfg.accel, cluster_maxc=cfg.cluster_maxc,
                 presorted=presorted, time=time)
-    t_max = torch.where(alive, 1e30, -1.0)
-    hit = sg_all(isect.intersect(scene, o, d, t_max, **trav))
-    it = sg_all(isect.make_interaction(scene, o, d, hit, time=time))
-    ray_count = st.ray_count + alive.sum()
-    found = hit.valid & alive
+    with statslib.stage("path/intersect"):
+        t_max = torch.where(alive, 1e30, -1.0)
+        hit = sg_all(isect.intersect(scene, o, d, t_max, **trav))
+        it = sg_all(isect.make_interaction(scene, o, d, hit, time=time))
+        ray_count = st.ray_count + alive.sum()
+        found = hit.valid & alive
 
     # ---------- participating medium event ----------
     # (homogeneous.cpp HomogeneousMedium::Sample: channel-mixed distance
@@ -444,92 +450,94 @@ def _bounce(scene, st: PathState, bounce: int, key, cfg: PathConfig,
     scatter = torch.zeros(N, dtype=torch.bool, device=dev)
     p_med = o
     if cfg.volumetric:
-        D = scene.med_sigma_a.shape[0]
-        u_med = ub[:, 0:2] if ub is not None else draw(smplr.DIM_PROBE, (N, 2))
-        medc = torch.clamp(med, 0, D - 1).long()
-        sig_a, sig_s = scene.med_sigma_a[medc], scene.med_sigma_s[medc]
-        sig_t = sig_a + sig_s
-        in_med = alive & (med >= 0)
-        ch = torch.clamp((u_med[:, 0] * 3).to(torch.int32), max=2)
-        st_ch = torch.gather(sig_t, 1, ch.long()[:, None])[:, 0]
-        t_surf = torch.where(hit.valid, hit.t, 2.0 * scene.world_radius
-                             / torch.clamp(vm.length(d), min=1e-9))
-        t_med = torch.where(
-            st_ch > 0.0,
-            -torch.log(torch.clamp(1.0 - u_med[:, 1], min=1e-9))
-            / torch.clamp(st_ch, min=1e-9), 1e30)
-        scatter = in_med & (t_med < t_surf) & (st_ch > 0.0)
-        t_eff = torch.minimum(t_med, t_surf)
-        tr = torch.exp(-sig_t * t_eff[:, None])
-        pdf_med = torch.mean(sig_t * tr, dim=-1)
-        pdf_surf = torch.mean(tr, dim=-1)
-        w_med = torch.where(
-            scatter[:, None], tr * sig_s / torch.clamp(pdf_med, min=1e-20)[:, None],
-            tr / torch.clamp(pdf_surf, min=1e-20)[:, None])
-        if cfg.grid_media:
-            is_grid = scene.med_grid_id[medc] >= 0
-            sig_t0 = sig_t[:, 0]
-            t_g, scat_g = _delta_track(
-                scene, key, bounce, medc, in_med & is_grid & (sig_t0 > 0.0),
-                t_surf, o, d, sig_t0, cfg.track_steps)
-            w_grid = torch.where(scat_g[:, None],
-                                 sig_s / torch.clamp(sig_t, min=1e-20),
-                                 torch.ones_like(sig_s))
-            scatter = torch.where(is_grid, scat_g, scatter)
-            t_eff = torch.where(is_grid, torch.minimum(t_g, t_surf), t_eff)
-            w_med = torch.where(is_grid[:, None], w_grid, w_med)
-        beta = torch.where(in_med[:, None], beta * w_med, beta)
-        p_med = o + t_eff[:, None] * d
-        # a ray that scattered did not reach the surface this segment
-        found = found & ~scatter
+        with statslib.stage("path/medium"):
+            D = scene.med_sigma_a.shape[0]
+            u_med = ub[:, 0:2] if ub is not None else draw(smplr.DIM_PROBE, (N, 2))
+            medc = torch.clamp(med, 0, D - 1).long()
+            sig_a, sig_s = scene.med_sigma_a[medc], scene.med_sigma_s[medc]
+            sig_t = sig_a + sig_s
+            in_med = alive & (med >= 0)
+            ch = torch.clamp((u_med[:, 0] * 3).to(torch.int32), max=2)
+            st_ch = torch.gather(sig_t, 1, ch.long()[:, None])[:, 0]
+            t_surf = torch.where(hit.valid, hit.t, 2.0 * scene.world_radius
+                                 / torch.clamp(vm.length(d), min=1e-9))
+            t_med = torch.where(
+                st_ch > 0.0,
+                -torch.log(torch.clamp(1.0 - u_med[:, 1], min=1e-9))
+                / torch.clamp(st_ch, min=1e-9), 1e30)
+            scatter = in_med & (t_med < t_surf) & (st_ch > 0.0)
+            t_eff = torch.minimum(t_med, t_surf)
+            tr = torch.exp(-sig_t * t_eff[:, None])
+            pdf_med = torch.mean(sig_t * tr, dim=-1)
+            pdf_surf = torch.mean(tr, dim=-1)
+            w_med = torch.where(
+                scatter[:, None], tr * sig_s / torch.clamp(pdf_med, min=1e-20)[:, None],
+                tr / torch.clamp(pdf_surf, min=1e-20)[:, None])
+            if cfg.grid_media:
+                is_grid = scene.med_grid_id[medc] >= 0
+                sig_t0 = sig_t[:, 0]
+                t_g, scat_g = _delta_track(
+                    scene, key, bounce, medc, in_med & is_grid & (sig_t0 > 0.0),
+                    t_surf, o, d, sig_t0, cfg.track_steps)
+                w_grid = torch.where(scat_g[:, None],
+                                     sig_s / torch.clamp(sig_t, min=1e-20),
+                                     torch.ones_like(sig_s))
+                scatter = torch.where(is_grid, scat_g, scatter)
+                t_eff = torch.where(is_grid, torch.minimum(t_g, t_surf), t_eff)
+                w_med = torch.where(is_grid[:, None], w_grid, w_med)
+            beta = torch.where(in_med[:, None], beta * w_med, beta)
+            p_med = o + t_eff[:, None] * d
+            # a ray that scattered did not reach the surface this segment
+            found = found & ~scatter
 
     # ---------- emitted radiance ----------
-    esc = alive & ~hit.valid & ~scatter
-    env = lightlib.environment_le(scene, d)
-    if cfg.nee_all:
-        # every light has its own NEE sample: the light strategy's density
-        # for a direction is the bare per-light pdf
-        inf_sel_pdf = 1.0
-    elif cfg.spatial_lights:
-        inf_sel_pdf = lightlib.infinite_select_pdf_spatial(scene, o)
-    else:
-        live_l = torch.arange(scene.light_kind.shape[0], device=dev) < scene.n_lights
-        inf_sel_pdf = torch.sum(torch.where(
-            (scene.light_kind == LIGHT_INFINITE) & live_l, scene.light_pdf,
-            torch.zeros_like(scene.light_pdf)))
-    if scene.has_env_map > 0:
-        env_dir_pdf = lightlib._env_dir_pdf(scene, d)
-    else:
-        env_dir_pdf = torch.full((N,), smp.INV_4PI, device=dev)
-    env_pdf = env_dir_pdf * inf_sel_pdf
-    def mis(light_pdf):
-        """Power-heuristic weight against the light strategy, or 1 on
-        bounce 0 and after specular bounces."""
-        if bounce == 0:
-            return torch.ones_like(prev_pdf)
-        return torch.where(spec, 1.0, smp.power_heuristic(1.0, prev_pdf, 1.0,
-                                                          light_pdf))
+    with statslib.stage("path/emitted"):
+        esc = alive & ~hit.valid & ~scatter
+        env = lightlib.environment_le(scene, d)
+        if cfg.nee_all:
+            # every light has its own NEE sample: the light strategy's density
+            # for a direction is the bare per-light pdf
+            inf_sel_pdf = 1.0
+        elif cfg.spatial_lights:
+            inf_sel_pdf = lightlib.infinite_select_pdf_spatial(scene, o)
+        else:
+            live_l = torch.arange(scene.light_kind.shape[0], device=dev) < scene.n_lights
+            inf_sel_pdf = torch.sum(torch.where(
+                (scene.light_kind == LIGHT_INFINITE) & live_l, scene.light_pdf,
+                torch.zeros_like(scene.light_pdf)))
+        if scene.has_env_map > 0:
+            env_dir_pdf = lightlib._env_dir_pdf(scene, d)
+        else:
+            env_dir_pdf = torch.full((N,), smp.INV_4PI, device=dev)
+        env_pdf = env_dir_pdf * inf_sel_pdf
+        def mis(light_pdf):
+            """Power-heuristic weight against the light strategy, or 1 on
+            bounce 0 and after specular bounces."""
+            if bounce == 0:
+                return torch.ones_like(prev_pdf)
+            return torch.where(spec, 1.0, smp.power_heuristic(1.0, prev_pdf, 1.0,
+                                                              light_pdf))
 
-    zero3 = torch.zeros_like(L)
-    skip0 = cfg.skip_bounce0_le and bounce == 0
-    if not skip0:
-        L = L + torch.where(esc[:, None], beta * env * mis(env_pdf)[:, None],
-                            zero3)
+        zero3 = torch.zeros_like(L)
+        skip0 = cfg.skip_bounce0_le and bounce == 0
+        if not skip0:
+            L = L + torch.where(esc[:, None], beta * env * mis(env_pdf)[:, None],
+                                zero3)
 
-    emissive = found & (it.light >= 0)
-    lid = torch.clamp(it.light, min=0)
-    le = lightlib.area_light_le(scene, lid, it.ng, it.wo)
-    hit_cos = torch.abs(vm.dot(it.ng, d))
-    if cfg.nee_all:
-        hit_sel_pdf = 1.0
-    elif cfg.spatial_lights:
-        hit_sel_pdf = lightlib.light_select_pdf_spatial(scene, o, lid)
-    else:
-        hit_sel_pdf = scene.light_pdf[lid.long()]
-    area_pdf = lightlib.pdf_li(scene, lid, o, d, hit.t, hit_cos) * hit_sel_pdf
-    if not skip0:
-        L = L + torch.where(emissive[:, None],
-                            beta * le * mis(area_pdf)[:, None], zero3)
+        emissive = found & (it.light >= 0)
+        lid = torch.clamp(it.light, min=0)
+        le = lightlib.area_light_le(scene, lid, it.ng, it.wo)
+        hit_cos = torch.abs(vm.dot(it.ng, d))
+        if cfg.nee_all:
+            hit_sel_pdf = 1.0
+        elif cfg.spatial_lights:
+            hit_sel_pdf = lightlib.light_select_pdf_spatial(scene, o, lid)
+        else:
+            hit_sel_pdf = scene.light_pdf[lid.long()]
+        area_pdf = lightlib.pdf_li(scene, lid, o, d, hit.t, hit_cos) * hit_sel_pdf
+        if not skip0:
+            L = L + torch.where(emissive[:, None],
+                                beta * le * mis(area_pdf)[:, None], zero3)
 
     aux_t = aux_n = None
     if collect_aux:
@@ -543,46 +551,47 @@ def _bounce(scene, st: PathState, bounce: int, key, cfg: PathConfig,
         alive = alive & ~ghost
 
     # ---------- shading frame and material ----------
-    ns = vm.face_forward(it.ns, it.ng)
-    ng_f = vm.face_forward(it.ng, -d)
-    t_f, b_f = vm.coordinate_system(ns)
-    wo_l = vm.to_local(it.wo, t_f, b_f, ns)
-    T_w = scene.tri_p0.shape[0]
-    is_tri = (hit.prim >= 0) & (hit.prim < T_w)
-    tid = torch.clamp(hit.prim, 0, T_w - 1).long()
-    cone_r = vm.length(it.p - scene.tex_cone_o[None, :]) * scene.tex_theta
-    tex_w = torch.where(is_tri, cone_r * scene.tri_uv_density[tid],
-                        torch.zeros_like(cone_r))
-    params = bsdflib.gather_params(scene, torch.clamp(it.mat, min=0), uv=it.uv,
-                                   p=it.p, tex_width=tex_w, face=it.face)
-    black = bsdflib.is_black(params)
-    if cfg.volumetric:
-        # a null-material medium boundary: pass straight through and
-        # switch medium (the reference skips the null BSDF's intersection)
-        entering = vm.dot(d, it.ng) < 0.0
-        m_in, m_out = scene.tri_med_in[tid], scene.tri_med_out[tid]
-        has_iface = is_tri & ((m_in >= 0) | (m_out >= 0))
-        passthrough = found & black & has_iface
-        alive = alive & (~black | passthrough)
-        # medium vertices live on, whatever the surface behind them
-        alive = alive | (scatter & (bounce < cfg.max_depth))
-        g_hg = scene.med_g[torch.clamp(med, 0, scene.med_g.shape[0] - 1).long()]
-    else:
-        alive = alive & ~black
-        passthrough = torch.zeros(N, dtype=torch.bool, device=dev)
-
-    # an exact-BSSRDF surface takes its own continuation (below) and has
-    # no NEE at the entry vertex: the reference's entry BSDF is a pure
-    # Fresnel interface
-    if cfg.has_subsurface:
-        sss = found & alive & (params.kind == MAT_SUBSURFACE)
+    with statslib.stage("path/material"):
+        ns = vm.face_forward(it.ns, it.ng)
+        ng_f = vm.face_forward(it.ng, -d)
+        t_f, b_f = vm.coordinate_system(ns)
+        wo_l = vm.to_local(it.wo, t_f, b_f, ns)
+        T_w = scene.tri_p0.shape[0]
+        is_tri = (hit.prim >= 0) & (hit.prim < T_w)
+        tid = torch.clamp(hit.prim, 0, T_w - 1).long()
+        cone_r = vm.length(it.p - scene.tex_cone_o[None, :]) * scene.tex_theta
+        tex_w = torch.where(is_tri, cone_r * scene.tri_uv_density[tid],
+                            torch.zeros_like(cone_r))
+        params = bsdflib.gather_params(scene, torch.clamp(it.mat, min=0), uv=it.uv,
+                                       p=it.p, tex_width=tex_w, face=it.face)
+        black = bsdflib.is_black(params)
         if cfg.volumetric:
-            # a medium vertex ends the segment before the surface
-            sss = sss & ~scatter & ~passthrough
-        beta_pre_sss = beta
-    else:
-        sss = torch.zeros(N, dtype=torch.bool, device=dev)
-    not_sss = ~sss
+            # a null-material medium boundary: pass straight through and
+            # switch medium (the reference skips the null BSDF's intersection)
+            entering = vm.dot(d, it.ng) < 0.0
+            m_in, m_out = scene.tri_med_in[tid], scene.tri_med_out[tid]
+            has_iface = is_tri & ((m_in >= 0) | (m_out >= 0))
+            passthrough = found & black & has_iface
+            alive = alive & (~black | passthrough)
+            # medium vertices live on, whatever the surface behind them
+            alive = alive | (scatter & (bounce < cfg.max_depth))
+            g_hg = scene.med_g[torch.clamp(med, 0, scene.med_g.shape[0] - 1).long()]
+        else:
+            alive = alive & ~black
+            passthrough = torch.zeros(N, dtype=torch.bool, device=dev)
+
+        # an exact-BSSRDF surface takes its own continuation (below) and has
+        # no NEE at the entry vertex: the reference's entry BSDF is a pure
+        # Fresnel interface
+        if cfg.has_subsurface:
+            sss = found & alive & (params.kind == MAT_SUBSURFACE)
+            if cfg.volumetric:
+                # a medium vertex ends the segment before the surface
+                sss = sss & ~scatter & ~passthrough
+            beta_pre_sss = beta
+        else:
+            sss = torch.zeros(N, dtype=torch.bool, device=dev)
+        not_sss = ~sss
 
     # ---------- NEE ----------
     def nee_once(light_id, sel_pdf, u_l, extra_mask):
@@ -636,90 +645,94 @@ def _bounce(scene, st: PathState, bounce: int, key, cfg: PathConfig,
             ls.pdf * sel_pdf, min=1e-12))[:, None]
         return torch.where(vis[:, None], contrib, zero3), can_nee.sum()
 
-    if cfg.nee_all:
-        # UniformSampleAllLights: one sample of each live light slot, from
-        # the threefry stream whatever the sampler (the reference's bits)
-        k_light = smplr.wave_key(key, 0, bounce, smplr.DIM_LIGHT_SAMPLE)
-        u_all = smplr.uniform(k_light, (N, scene.light_kind.shape[0], 3), dev)
-        ones = torch.ones(N, device=dev)
-        for li in range(scene.n_lights):
-            c_nee, n_sh = nee_once(torch.full((N,), li, dtype=torch.int32,
-                                              device=dev), ones, u_all[:, li],
-                                   not_sss)
+    with statslib.stage("path/nee"):
+        if cfg.nee_all:
+            # UniformSampleAllLights: one sample of each live light slot, from
+            # the threefry stream whatever the sampler (the reference's bits)
+            k_light = smplr.wave_key(key, 0, bounce, smplr.DIM_LIGHT_SAMPLE)
+            u_all = smplr.uniform(k_light, (N, scene.light_kind.shape[0], 3), dev)
+            ones = torch.ones(N, device=dev)
+            for li in range(scene.n_lights):
+                c_nee, n_sh = nee_once(torch.full((N,), li, dtype=torch.int32,
+                                                  device=dev), ones, u_all[:, li],
+                                       not_sss)
+                L = L + c_nee
+                ray_count = ray_count + n_sh
+        else:
+            u_sel = ub[:, 2] if ub is not None else draw(smplr.DIM_LIGHT_SELECT, (N,))
+            u_l = ub[:, 3:6] if ub is not None else draw(smplr.DIM_LIGHT_SAMPLE, (N, 3))
+            if cfg.spatial_lights:
+                p_sel = (torch.where(scatter[:, None], p_med, it.p)
+                         if cfg.volumetric else it.p)
+                light_id, sel_pdf = lightlib.choose_light_spatial(scene, u_sel, p_sel)
+            else:
+                light_id, sel_pdf = lightlib.choose_light(scene, u_sel)
+            c_nee, n_sh = nee_once(light_id, sel_pdf, u_l, not_sss)
             L = L + c_nee
             ray_count = ray_count + n_sh
-    else:
-        u_sel = ub[:, 2] if ub is not None else draw(smplr.DIM_LIGHT_SELECT, (N,))
-        u_l = ub[:, 3:6] if ub is not None else draw(smplr.DIM_LIGHT_SAMPLE, (N, 3))
-        if cfg.spatial_lights:
-            p_sel = (torch.where(scatter[:, None], p_med, it.p)
-                     if cfg.volumetric else it.p)
-            light_id, sel_pdf = lightlib.choose_light_spatial(scene, u_sel, p_sel)
-        else:
-            light_id, sel_pdf = lightlib.choose_light(scene, u_sel)
-        c_nee, n_sh = nee_once(light_id, sel_pdf, u_l, not_sss)
-        L = L + c_nee
-        ray_count = ray_count + n_sh
 
     # ---------- BSDF sample / continuation ----------
-    u_lobe = ub[:, 6] if ub is not None else draw(smplr.DIM_BSDF_LOBE, (N,))
-    u_dir = ub[:, 7:9] if ub is not None else draw(smplr.DIM_BSDF_DIR, (N, 2))
-    bs = bsdflib.sample(params, wo_l, u_lobe, u_dir, enable_hair=cfg.has_hair)
-    # detached sampling: the direction and its pdf are frozen, bs.f carries
-    # the material's gradient
-    wi_w = sg(vm.to_world(bs.wi, t_f, b_f, ns))
-    cos_w = sg(vm.absdot(wi_w, ns))
-    beta_new = beta * bs.f * (cos_w / torch.clamp(sg(bs.pdf), min=1e-12))[:, None]
-    if cfg.volumetric:
-        # a medium vertex samples Henyey-Greenstein (p / pdf = 1); a
-        # null-material boundary continues straight on
-        wi_hg, pdf_hg = _hg_sample(-d, g_hg, u_dir)
-        wi_w = torch.where(scatter[:, None], wi_hg, wi_w)
-        beta_new = torch.where(scatter[:, None], beta, beta_new)
-        wi_w = torch.where(passthrough[:, None], d, wi_w)
-        beta_new = torch.where(passthrough[:, None], beta, beta_new)
-    lum_new = vm.luminance(beta_new)
-    ok = (bs.valid & alive & (vm.luminance(torch.abs(beta_new)) > 0.0)
-          & torch.isfinite(lum_new))
-    if cfg.volumetric:
-        ok = ok | (alive & (scatter | passthrough))
-    beta = torch.where(ok[:, None], beta_new, beta)
-    alive = alive & ok
-    if cfg.direct_only:
-        ghost = alive & ~bs.is_specular
-    spec = bs.is_specular
-    prev_pdf = sg(torch.where(bs.is_specular, 1.0, bs.pdf))
-    if cfg.volumetric:
-        spec = torch.where(scatter, False, torch.where(passthrough, True, spec))
-        prev_pdf = torch.where(scatter, pdf_hg, prev_pdf)
-        # medium transitions on transmission and at null boundaries
-        crossing = (bs.is_transmission & ~scatter) | passthrough
-        med = torch.where(found & crossing & is_tri,
-                          torch.where(entering, m_in, m_out), med)
-    eta_rel = torch.where(vm.dot(it.wo, it.ng) > 0.0, params.eta,
-                          1.0 / torch.clamp(params.eta, min=1e-6))
-    eta_scale = torch.where(bs.is_transmission, eta_scale * eta_rel * eta_rel,
-                            eta_scale)
-    o = vm.offset_ray_origin(it.p, ng_f, wi_w)
-    if cfg.volumetric:
-        o = torch.where(scatter[:, None], p_med, o)
-    d = wi_w
+    with statslib.stage("path/bsdf"):
+        u_lobe = ub[:, 6] if ub is not None else draw(smplr.DIM_BSDF_LOBE, (N,))
+        u_dir = ub[:, 7:9] if ub is not None else draw(smplr.DIM_BSDF_DIR, (N, 2))
+        bs = bsdflib.sample(params, wo_l, u_lobe, u_dir, enable_hair=cfg.has_hair)
+        # detached sampling: the direction and its pdf are frozen, bs.f carries
+        # the material's gradient
+        wi_w = sg(vm.to_world(bs.wi, t_f, b_f, ns))
+        cos_w = sg(vm.absdot(wi_w, ns))
+        beta_new = beta * bs.f * (cos_w / torch.clamp(sg(bs.pdf), min=1e-12))[:, None]
+        if cfg.volumetric:
+            # a medium vertex samples Henyey-Greenstein (p / pdf = 1); a
+            # null-material boundary continues straight on
+            wi_hg, pdf_hg = _hg_sample(-d, g_hg, u_dir)
+            wi_w = torch.where(scatter[:, None], wi_hg, wi_w)
+            beta_new = torch.where(scatter[:, None], beta, beta_new)
+            wi_w = torch.where(passthrough[:, None], d, wi_w)
+            beta_new = torch.where(passthrough[:, None], beta, beta_new)
+        lum_new = vm.luminance(beta_new)
+        ok = (bs.valid & alive & (vm.luminance(torch.abs(beta_new)) > 0.0)
+              & torch.isfinite(lum_new))
+        if cfg.volumetric:
+            ok = ok | (alive & (scatter | passthrough))
+        beta = torch.where(ok[:, None], beta_new, beta)
+        alive = alive & ok
+        if cfg.direct_only:
+            ghost = alive & ~bs.is_specular
+        spec = bs.is_specular
+        prev_pdf = sg(torch.where(bs.is_specular, 1.0, bs.pdf))
+        if cfg.volumetric:
+            spec = torch.where(scatter, False, torch.where(passthrough, True, spec))
+            prev_pdf = torch.where(scatter, pdf_hg, prev_pdf)
+            # medium transitions on transmission and at null boundaries
+            crossing = (bs.is_transmission & ~scatter) | passthrough
+            med = torch.where(found & crossing & is_tri,
+                              torch.where(entering, m_in, m_out), med)
+        eta_rel = torch.where(vm.dot(it.wo, it.ng) > 0.0, params.eta,
+                              1.0 / torch.clamp(params.eta, min=1e-6))
+        eta_scale = torch.where(bs.is_transmission, eta_scale * eta_rel * eta_rel,
+                                eta_scale)
+        o = vm.offset_ray_origin(it.p, ng_f, wi_w)
+        if cfg.volumetric:
+            o = torch.where(scatter[:, None], p_med, o)
+        d = wi_w
 
     if cfg.has_subsurface:
-        L, beta, o, d, alive, spec, prev_pdf, ray_count = _bssrdf(
-            scene, cfg, trav, draw, it, params, sss, beta_pre_sss, u_lobe,
-            wo_l, t_f, b_f, ns, ng_f,
-            (L, beta, o, d, alive, spec, prev_pdf, ray_count), sg_all)
+        with statslib.stage("path/bssrdf"):
+            L, beta, o, d, alive, spec, prev_pdf, ray_count = _bssrdf(
+                scene, cfg, trav, draw, it, params, sss, beta_pre_sss, u_lobe,
+                wo_l, t_f, b_f, ns, ng_f,
+                (L, beta, o, d, alive, spec, prev_pdf, ray_count), sg_all)
 
     # ---------- russian roulette ----------
-    rr_beta_max = sg(vm.max_component(beta * eta_scale[:, None]))
-    do_rr = (rr_beta_max < cfg.rr_threshold) & (bounce > RR_START)
-    q = torch.clamp(1.0 - rr_beta_max, min=0.05)
-    u_rr = ub[:, 9] if ub is not None else draw(smplr.DIM_RR, (N,))
-    killed = do_rr & (u_rr < q)
-    alive = alive & ~killed
-    beta = torch.where((do_rr & ~killed)[:, None],
-                       beta / torch.clamp(1.0 - q, min=1e-6)[:, None], beta)
+    with statslib.stage("path/roulette"):
+        rr_beta_max = sg(vm.max_component(beta * eta_scale[:, None]))
+        do_rr = (rr_beta_max < cfg.rr_threshold) & (bounce > RR_START)
+        q = torch.clamp(1.0 - rr_beta_max, min=0.05)
+        u_rr = ub[:, 9] if ub is not None else draw(smplr.DIM_RR, (N,))
+        killed = do_rr & (u_rr < q)
+        alive = alive & ~killed
+        beta = torch.where((do_rr & ~killed)[:, None],
+                           beta / torch.clamp(1.0 - q, min=1e-6)[:, None], beta)
     return PathState(o=o, d=d, beta=beta, L=L, alive=alive, spec=spec,
                      prev_pdf=prev_pdf, eta_scale=eta_scale, ghost=ghost,
                      med=med, ray_count=ray_count, aux_t=aux_t, aux_n=aux_n)

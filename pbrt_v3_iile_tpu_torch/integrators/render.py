@@ -180,7 +180,8 @@ def render_pass_fn(sd, cfg, device, chunk_rows: int = 0):
                and sd.camera.lens_radius <= 0.0)
 
     def run(scene, cam, key, pass_idx: int, row0: int = 0):
-        o, d, w, jitter, k, ctx, rtime = prep(cam, key, pass_idx, row0)
+        with statslib.stage("render/camera"):
+            o, d, w, jitter, k, ctx, rtime = prep(cam, key, pass_idx, row0)
         if sd.integrator.kind == "ambientocclusion":
             L = aolib.trace_ao(scene, o, d, k, accel=cfg.accel,
                                cos_sample=sd.integrator.cos_sample)
@@ -293,7 +294,7 @@ def render(sd, spp: int = None, seed: int = 0, max_wave: int = 1 << 16,
     t0 = time.time()
     for p in range(start_pass, spp):
         Ls, Js = [], []
-        with statslib.stage("render/pass", sync=Ls):
+        with statslib.stage("render/pass"):
             for row0 in range(0, H, CH):
                 L, jitter, aux = run(scene, cam, key, p, row0)
                 Ls.append(L)
@@ -301,8 +302,7 @@ def render(sd, spp: int = None, seed: int = 0, max_wave: int = 1 << 16,
                 ray_parts.append(aux["rays"])
                 if "splat" in aux:
                     splat = aux["splat"] if splat is None else splat + aux["splat"]
-        # (a stage's sync waits for all of its device's work, this add too)
-        with statslib.stage("render/film_add", sync=Ls):
+        with statslib.stage("render/film_add"):
             film = filmlib.add_sample_image(film, torch.cat(Ls), torch.cat(Js),
                                             **fkw)
         if checkpoint and checkpoint_every and (p + 1) % checkpoint_every == 0:
@@ -317,7 +317,8 @@ def render(sd, spp: int = None, seed: int = 0, max_wave: int = 1 << 16,
         img = img + splat_img
         extra["splat"] = splat_img.cpu().numpy()
     img = img.cpu().numpy()
-    total_rays = int(torch.stack(ray_parts).sum()) if ray_parts else 0
+    with statslib.sync_point("rays_total"):
+        total_rays = int(torch.stack(ray_parts).sum()) if ray_parts else 0
     if statslib.enabled():
         statslib.add_counter("rays/total", total_rays)
         statslib.add_counter("pixels x passes", (spp - start_pass) * H * W)

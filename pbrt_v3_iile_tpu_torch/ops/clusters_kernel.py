@@ -24,6 +24,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils import stats as statslib
 from . import clusters as cluster_lib
 from .intersect import Hit, _cross3
 
@@ -381,7 +382,9 @@ def intersect_clusters_fused(cp, o, d, t_max, *, any_hit: bool = False,
         b2 = torch.zeros(Np, device=dev)
 
     overflow = n_cand > MAXC
-    if bool(overflow.any()):
+    with statslib.sync_point("k1_overflow"):
+        any_overflow = bool(overflow.any())
+    if any_overflow:
         if fallback is None:
             raise ValueError("intersect_clusters_fused: groups overflow "
                              f"{MAXC} candidates and no fallback was given")

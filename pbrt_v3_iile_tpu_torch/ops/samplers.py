@@ -17,6 +17,7 @@ from dataclasses import dataclass, replace
 
 import torch
 
+from ..utils import stats as statslib
 from . import lds
 from . import threefry
 
@@ -133,23 +134,24 @@ def ctx_uniform(ctx, key, bounce: int, purpose: int, shape, device=None):
     ctx None -> threefry stream ``wave_key(key, 0, bounce, purpose)``;
     a HaltonCtx -> permuted radical inverses rotated per pixel;
     another ctx -> padded Owen-scrambled Sobol02 pairs.  shape: (N,) or (N, k)
-    with k <= 4."""
-    if ctx is None:
-        return uniform(wave_key(key, 0, bounce, purpose), shape, device)
-    k = 1 if len(shape) == 1 else shape[1]
-    cols = []
-    if isinstance(ctx, HaltonCtx):
-        for kk in range(k):
-            code = (bounce * 64 + purpose * 4 + kk) & lds.M32
-            x1 = float(lds.scrambled_radical_inverse_dyn(2 + code, ctx.index))
-            rot = lds.to_unit_float(_dim_seed(ctx, bounce, purpose, kk))
-            cols.append(torch.remainder(x1 + rot, 1.0))
-    else:
-        for pair in range((k + 1) // 2):
-            sx = _dim_seed(ctx, bounce, purpose, 2 * pair)
-            sy = _dim_seed(ctx, bounce, purpose, 2 * pair + 1)
-            x, y = lds.sobol02_owen_shared(ctx.index, sx, sy)
-            cols.extend([x, y])
-    if len(shape) == 1:
-        return cols[0]
-    return torch.stack(cols[:k], dim=-1)
+    with k <= 4.  Each call is a ``samples/draw`` span."""
+    with statslib.stage("samples/draw"):
+        if ctx is None:
+            return uniform(wave_key(key, 0, bounce, purpose), shape, device)
+        k = 1 if len(shape) == 1 else shape[1]
+        cols = []
+        if isinstance(ctx, HaltonCtx):
+            for kk in range(k):
+                code = (bounce * 64 + purpose * 4 + kk) & lds.M32
+                x1 = float(lds.scrambled_radical_inverse_dyn(2 + code, ctx.index))
+                rot = lds.to_unit_float(_dim_seed(ctx, bounce, purpose, kk))
+                cols.append(torch.remainder(x1 + rot, 1.0))
+        else:
+            for pair in range((k + 1) // 2):
+                sx = _dim_seed(ctx, bounce, purpose, 2 * pair)
+                sy = _dim_seed(ctx, bounce, purpose, 2 * pair + 1)
+                x, y = lds.sobol02_owen_shared(ctx.index, sx, sy)
+                cols.extend([x, y])
+        if len(shape) == 1:
+            return cols[0]
+        return torch.stack(cols[:k], dim=-1)

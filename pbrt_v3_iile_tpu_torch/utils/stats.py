@@ -1,26 +1,38 @@
-"""Per-stage render statistics (port of ``utils/stats.py``; the
-stats.h:279 counters and the stats.cpp:207 profiler role).
+"""Render statistics and the port's tracer (port of ``utils/stats.py``;
+the stats.h:279 counters and the stats.cpp:207 profiler role).
 
-A process-global registry of stage wall times and counters, filled by
-the drivers when enabled (the CLI's ``--stats``).  Timing a stage waits
-for the device work behind it (``torch.cuda.synchronize`` on the CUDA
-device of the tensors named), so it is off by default: unsynced passes
-pipeline.
+A process-global registry, filled when enabled (the CLI's ``--stats``):
+
+- spans: ``with stage(name):`` records ``(name, parent, t0_ns, t1_ns)``
+  on the host's ``time.perf_counter_ns`` and enters
+  ``torch.profiler.record_function(name)``, so that under a profiler
+  every span is a ``user_annotation`` in the same trace as the kernels
+  it launched, on the trace's clock;
+- sync points: ``with sync_point(name):`` around a call that makes the
+  host wait for the device, a span ``sync/<name>`` counted under
+  ``syncs/<name>``;
+- counters: ``add_counter``.
+
+Spans never wait for the device: a span's time is the host's time in it
+(enqueueing work, and waiting only inside its sync points), and an
+enabled registry leaves the pipeline as it is.  The device time of a
+span's work comes from a profiler trace, joined by span name.  Off (the
+default), ``stage`` and ``sync_point`` return one shared no-op context.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import defaultdict
-from contextlib import contextmanager
-from dataclasses import fields, is_dataclass
 
 import torch
 
 _ENABLED = False
-_STAGES: dict = defaultdict(float)
-_STAGE_CALLS: dict = defaultdict(int)
+_SPANS: list = []      # (name, parent name or None, t0_ns, t1_ns), as they close
+_OPEN: list = []       # the names of the open spans, innermost last
 _COUNTERS: dict = defaultdict(int)
+_OFF = contextlib.nullcontext()
 
 
 def enable(on: bool = True):
@@ -33,8 +45,8 @@ def enabled() -> bool:
 
 
 def reset():
-    _STAGES.clear()
-    _STAGE_CALLS.clear()
+    _SPANS.clear()
+    _OPEN.clear()
     _COUNTERS.clear()
 
 
@@ -42,72 +54,96 @@ def add_counter(name: str, n):
     _COUNTERS[name] += int(n)
 
 
-def _first_tensor(x):
-    """The first tensor in x (a tensor, a sequence, dict or dataclass)."""
-    if isinstance(x, torch.Tensor):
-        return x
-    if is_dataclass(x):
-        x = [getattr(x, f.name) for f in fields(x)]
-    elif isinstance(x, dict):
-        x = list(x.values())
-    if isinstance(x, (list, tuple)):
-        for v in x:
-            t = _first_tensor(v)
-            if t is not None:
-                return t
-    return None
+class _Span:
+    __slots__ = ("name", "rf", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.rf = torch.profiler.record_function(self.name)
+        self.rf.__enter__()
+        _OPEN.append(self.name)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        _OPEN.pop()
+        _SPANS.append((self.name, _OPEN[-1] if _OPEN else None, self.t0, t1))
+        self.rf.__exit__(*exc)
+        return False
 
 
-def block(out):
-    """Wait for all work queued on the card that holds out (nothing when
-    out is on the CPU)."""
-    t = _first_tensor(out)
-    if t is not None and t.is_cuda:
-        torch.cuda.synchronize(t.device)
+def stage(name: str):
+    """A span around a phase of the host's work (a no-op when disabled)."""
+    return _Span(name) if _ENABLED else _OFF
 
 
-@contextmanager
-def stage(name: str, sync=None):
-    """Time a host-side stage when enabled; sync: tensors to wait for at
-    its end, so that the time covers their device work."""
+def sync_point(name: str):
+    """A span ``sync/<name>`` around a call that makes the host wait for
+    the device, counted under ``syncs/<name>`` (a no-op when disabled)."""
     if not _ENABLED:
-        yield
-        return
-    t0 = time.time()
-    try:
-        yield
-    finally:
-        if sync is not None:
-            block(sync)
-        _STAGES[name] += time.time() - t0
-        _STAGE_CALLS[name] += 1
+        return _OFF
+    _COUNTERS["syncs/" + name] += 1
+    return _Span("sync/" + name)
 
 
-def timed(name: str, fn, *args, **kw):
-    """fn(*args, **kw); when enabled, waits for its output's device work
-    and adds the wall time to the stage."""
-    if not _ENABLED:
-        return fn(*args, **kw)
-    t0 = time.time()
-    out = fn(*args, **kw)
-    block(out)
-    _STAGES[name] += time.time() - t0
-    _STAGE_CALLS[name] += 1
+def spans() -> list:
+    """The closed spans, (name, parent, t0_ns, t1_ns) in closing order."""
+    return list(_SPANS)
+
+
+def current():
+    """The name of the innermost open span, or None."""
+    return _OPEN[-1] if _OPEN else None
+
+
+def counters() -> dict:
+    return dict(_COUNTERS)
+
+
+def self_times(intervals) -> list:
+    """[(t0, t1)] of properly nested spans -> each span's duration less
+    the time its child spans cover, in the same order."""
+    order = sorted(range(len(intervals)), key=lambda i: (intervals[i][0], -intervals[i][1]))
+    own = [t1 - t0 for t0, t1 in intervals]
+    stack = []
+    for i in order:
+        t0, t1 = intervals[i]
+        while stack and intervals[stack[-1]][1] <= t0:
+            stack.pop()
+        if stack:
+            own[stack[-1]] -= t1 - t0
+        stack.append(i)
+    return own
+
+
+def summary() -> dict:
+    """-> {span name: {"calls", "inclusive_s", "self_s"}}; a span's self
+    time is its duration less the time its child spans cover."""
+    out: dict = {}
+    own = self_times([(t0, t1) for _, _, t0, t1 in _SPANS])
+    for (name, _, t0, t1), own_ns in zip(_SPANS, own):
+        s = out.setdefault(name, {"calls": 0, "inclusive_s": 0.0, "self_s": 0.0})
+        s["calls"] += 1
+        s["inclusive_s"] += (t1 - t0) * 1e-9
+        s["self_s"] += own_ns * 1e-9
     return out
 
 
 def report() -> str:
     """The stats table (stats.cpp PrintStats layout)."""
     lines = ["Statistics:"]
-    if _STAGES:
-        total = sum(_STAGES.values())
-        lines.append("  Stage wall time")
-        for k in sorted(_STAGES, key=lambda k: -_STAGES[k]):
-            dt = _STAGES[k]
-            lines.append(
-                f"    {k:<28s} {dt:9.3f} s  {100 * dt / max(total, 1e-12):5.1f} %"
-                f"  ({_STAGE_CALLS[k]} calls)")
-        lines.append(f"    {'TOTAL':<28s} {total:9.3f} s")
+    summ = summary()
+    if summ:
+        lines.append("  Host time per stage (no device sync: a stage's device "
+                     "work may run after it; waits are the sync/ stages)")
+        lines.append(f"    {'stage':<28s} {'inclusive':>11s} {'self':>11s}  calls")
+        for k in sorted(summ, key=lambda k: -summ[k]["inclusive_s"]):
+            s = summ[k]
+            lines.append(f"    {k:<28s} {s['inclusive_s']:9.3f} s {s['self_s']:9.3f} s"
+                         f"  {s['calls']}")
     if _COUNTERS:
         lines.append("  Counters")
         for k in sorted(_COUNTERS):

@@ -10,6 +10,8 @@ import math
 
 import torch
 
+from . import stats as statslib
+
 EPS = 1e-7
 INF = math.inf
 # Scale-relative ray-origin offset (the reference's RAY_EPS; 1e-4 was set
@@ -107,8 +109,10 @@ def spherical_phi(v):
 
 def luminance(rgb):
     """Relative luminance of linear RGB."""
-    w = torch.tensor([0.212671, 0.715160, 0.072169], dtype=rgb.dtype,
-                     device=rgb.device)
+    # a copy from pageable host memory: on the card the host waits for it
+    with statslib.sync_point("luminance_weights"):
+        w = torch.tensor([0.212671, 0.715160, 0.072169], dtype=rgb.dtype,
+                         device=rgb.device)
     return torch.sum(rgb * w, dim=-1)
 
 
