@@ -4,8 +4,9 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (one line each):
   1. the device: torch's name for it and nvidia-smi's name and power limit;
-  2. build the four CUDA sources from pbrt_v3_iile_tpu_torch/csrc (K1, K2
-     with its motion variant, K3, K4), one nvcc each, in parallel, printing
+  2. build the five CUDA sources from pbrt_v3_iile_tpu_torch/csrc (K1, K2
+     with its motion variant, K3, K4, the Sobol draw), one nvcc each, in
+     parallel, printing
      ptxas's registers, shared memory and spills per kernel;
   3. build the device scene of scenes/atrium.pbrt on the GPU (with the
      BVH kernel's 4-wide nodes and the kd-tree);
@@ -30,7 +31,8 @@ Phases (one line each):
      with clusters also one pass with cluster_maxc=8 (the forced overflow
      path).  Kernel launch counts and the calls of the torch cull
      (per_ray_cull, which must make none) are read around each path: the
-     clusters path must launch both kernels, the bvh path K2 and not K1;
+     clusters path must launch both kernels, the bvh path K2 and not K1,
+     and both the Sobol draw kernel (atrium's sampler is sobol);
   7. IILE (integrators/iispt.py::render_iile, the pretrained IISPTNet):
      (a) atrium 128^2, accel "bvh", 2
      indirect tasks, 4 direct passes, 32^2 hemispheres, seed 0, held
@@ -223,7 +225,11 @@ Phases (one line each):
      CUDA events (each plain version on the call of phase 4, 5 or 12
      that holds its kernel to it), with each kernel's bound computed
      from this run's inputs (K3 on atrium's bounce wave, K2-motion on
-     atrium_motion's); K2 at every wave of a bvh pass; the atrium 512^2 depth-5 compacted
+     atrium_motion's); K2 at every wave of a bvh pass; the Sobol draws
+     of a clusters pass, each held bit for bit against its plain version
+     (owen_draw_plain, sobol_pixel_samples_plain) on the pass's own pixel
+     ids, then timed, their bound the bytes (8 in and 4 a column out a
+     lane); the atrium 512^2 depth-5 compacted
      pass as bench.py configures it, with each accel, passes in turns, in
      Mrays/s counted as path.py counts rays, the kernel launches per pass.
      The profiler sessions (device-busy ms and idle share of the pass,
@@ -455,12 +461,13 @@ class StageTimer:
 def run_counted(fn, K1, K2):
     """fn() with every kernel's launch count set to 0 just before it:
     returns its result, its wall seconds and the launches it made (K1,
-    K2, K2's motion variant, K3 and K4)."""
+    K2, K2's motion variant, K3, K4 and the Sobol draw)."""
     from pbrt_v3_iile_tpu_torch.ops import kd_kernel as K3
     from pbrt_v3_iile_tpu_torch.ops import photon_kernel as K4
+    from pbrt_v3_iile_tpu_torch.ops import sobol_kernel as SK
 
     K1.LAUNCHES = K2.LAUNCHES = K2.LAUNCHES_MOTION = K3.LAUNCHES = 0
-    K4.LAUNCHES = 0
+    K4.LAUNCHES = SK.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.time()
     out = fn()
@@ -1111,6 +1118,8 @@ def scenes_phase(dev, smi, K1, K2):
     check(same, "the resumed render differs from the unbroken one")
 
     # (e) measured: the 512^2 passes of the new paths on clusters
+    from pbrt_v3_iile_tpu_torch.ops import sobol_kernel as SK
+
     key = threefry.prng_key(0)
     per_pass = {}
     for kind in ("halton", "ambientocclusion", "whitted"):
@@ -1121,9 +1130,9 @@ def scenes_phase(dev, smi, K1, K2):
         scene, cam = renderlib.build(sd, dev, with_clusters=True)
         run = renderlib.render_pass_fn(sd, cfg, dev)
         float(run(scene, cam, key, 0)[0].sum())   # warmup pass
-        times, rays, k1, k2 = [], [], 0, 0
+        times, rays, k1, k2, k3 = [], [], 0, 0, 0
         for p in range(1, 4):
-            a1, a2 = K1.LAUNCHES, K2.LAUNCHES
+            a1, a2, a3 = K1.LAUNCHES, K2.LAUNCHES, SK.LAUNCHES
             torch.cuda.synchronize()
             t0 = time.time()
             L, _, aux = run(scene, cam, key, p)
@@ -1132,8 +1141,10 @@ def scenes_phase(dev, smi, K1, K2):
             rays.append(int(aux["rays"]))
             k1 += K1.LAUNCHES - a1
             k2 += K2.LAUNCHES - a2
+            k3 += SK.LAUNCHES - a3
             check(np.isfinite(checksum), f"non-finite 512^2 {kind} pass")
-        per_pass[kind] = {"cluster_traverse": k1 / 3, "bvh_traverse": k2 / 3}
+        per_pass[kind] = {"cluster_traverse": k1 / 3, "bvh_traverse": k2 / 3,
+                          "sobol_draw": k3 / 3}
         check(k1 > 0, f"512^2 {kind}: K1 never launched")
         line(f"scenes512_{kind}_clusters", pass_ms=[t * 1e3 for t in times],
              rays=rays, mrays_per_s=[n / t / 1e6 for n, t in zip(rays, times)],
@@ -1265,6 +1276,7 @@ def transport_phase(dev, smi, K1, K2):
     from pbrt_v3_iile_tpu_torch.integrators import render as renderlib
     from pbrt_v3_iile_tpu_torch.ops import fourierbsdf as fblib
     from pbrt_v3_iile_tpu_torch.ops import hair as hairlib
+    from pbrt_v3_iile_tpu_torch.ops import sobol_kernel as SK
     from pbrt_v3_iile_tpu_torch.ops import threefry
     from pbrt_v3_iile_tpu_torch.scene import api as apilib
     from pbrt_v3_iile_tpu_torch.utils import image as imglib
@@ -1404,7 +1416,7 @@ def transport_phase(dev, smi, K1, K2):
         run = renderlib.render_pass_fn(sd, cfg, dev)
         float(run(scene, cam, key, 0)[0].sum())   # warmup pass
         times, rays = [], []
-        a1, a2 = K1.LAUNCHES, K2.LAUNCHES
+        a1, a2, a3 = K1.LAUNCHES, K2.LAUNCHES, SK.LAUNCHES
         for p in range(1, 4):
             with traversal_sites(K1, K2) as sites:
                 torch.cuda.synchronize()
@@ -1415,7 +1427,8 @@ def transport_phase(dev, smi, K1, K2):
             rays.append(int(aux["rays"]))
             check(np.isfinite(checksum), f"non-finite 512^2 {name} pass")
         per_pass[name] = {"cluster_traverse": (K1.LAUNCHES - a1) / 3,
-                          "bvh_traverse": (K2.LAUNCHES - a2) / 3}
+                          "bvh_traverse": (K2.LAUNCHES - a2) / 3,
+                          "sobol_draw": (SK.LAUNCHES - a3) / 3}
         check(per_pass[name]["cluster_traverse"] > 0, f"{name}: K1 never launched")
         line(f"transport512_{name}_clusters", pass_ms=[t * 1e3 for t in times],
              rays=rays, mrays_per_s=[n / t / 1e6 for n, t in zip(rays, times)],
@@ -1450,10 +1463,12 @@ def camera_tool():
 
 def launch_counts(K1, K2, K3):
     from pbrt_v3_iile_tpu_torch.ops import photon_kernel as K4
+    from pbrt_v3_iile_tpu_torch.ops import sobol_kernel as SK
 
     return {"cluster_traverse": K1.LAUNCHES, "bvh_traverse": K2.LAUNCHES,
             "bvh_traverse_motion": K2.LAUNCHES_MOTION,
-            "kd_traverse": K3.LAUNCHES, "photon_gather": K4.LAUNCHES}
+            "kd_traverse": K3.LAUNCHES, "photon_gather": K4.LAUNCHES,
+            "sobol_draw": SK.LAUNCHES}
 
 
 def cameras_phase(dev, smi, K1, K2, K3, atrium, waves):
@@ -1750,6 +1765,72 @@ def camera_kernel_timing(cams, scene, waves, K2, K3, isect, kdtree, smi):
          plain_ms_by_wave=cams["plain_ms"],
          power=smi)
     K2.LAUNCHES_MOTION, K3.LAUNCHES = saved
+    return out
+
+
+def sobol_draw_timing(run, scene, cam, key, SK, smplr):
+    """The Sobol draws of one pass of run (a 512^2 render_pass_fn): their
+    inputs recorded, each draw held bit for bit against its plain version
+    (owen_draw_plain on the draw's SampleCtx, sobol_pixel_samples_plain
+    for the camera's jitter), then each timed by CUDA events, kernel and
+    plain version, with its bound: the bytes, 8 in and 4 a column out a
+    lane, at PEAK_BYTES.  Returns the sums over the pass and the largest
+    draw of each mode and column count."""
+    drawn = []
+    owen, xor = SK.owen_draw_cuda, SK.xor_pair_cuda
+
+    def rec_owen(pixel, index, salt, bounce, purpose, shape):
+        drawn.append(("owen", (pixel.clone(), index, salt, bounce, purpose,
+                               tuple(shape))))
+        return owen(pixel, index, salt, bounce, purpose, shape)
+
+    def rec_xor(pixel, pass_idx):
+        drawn.append(("camera", (pixel.clone(), pass_idx)))
+        return xor(pixel, pass_idx)
+
+    SK.owen_draw_cuda, SK.xor_pair_cuda = rec_owen, rec_xor
+    try:
+        L, _, _ = run(scene, cam, key, 0)
+        float(L.sum())
+    finally:
+        SK.owen_draw_cuda, SK.xor_pair_cuda = owen, xor
+    check(any(m == "camera" for m, _ in drawn) and any(m == "owen" for m, _ in drawn),
+          f"a 512^2 pass drew {[m for m, _ in drawn]}: no camera or no Owen draw")
+    rows, differing = [], 0
+    for mode, a in drawn:
+        if mode == "owen":
+            pixel, index, salt, bounce, purpose, shape = a
+            kernel = lambda a=a: owen(*a)
+            plain = lambda a=a: smplr.owen_draw_plain(
+                smplr.SampleCtx(pixel=a[0], index=a[1], salt=a[2]), *a[3:])
+            cols = 1 if len(shape) == 1 else shape[1]
+        else:
+            pixel = a[0]
+            kernel = lambda a=a: xor(*a)
+            plain = lambda a=a: smplr.sobol_pixel_samples_plain(*a)
+            cols = 2
+        got, want = kernel(), plain()
+        same = (got.shape == want.shape
+                and bool(torch.equal(got.view(torch.int32), want.view(torch.int32))))
+        differing += not same
+        rows.append(dict(mode=mode, columns=cols, lanes=int(pixel.shape[0]),
+                         identical=same, ms=cuda_ms(kernel, 20),
+                         plain_ms=cuda_ms(plain, 5),
+                         bound_ms=(8 + 4 * cols) * pixel.shape[0] / PEAK_BYTES * 1e3))
+    largest = {}
+    for r in rows:
+        k = f"{r['mode']}_k{r['columns']}"
+        if r["lanes"] > largest.get(k, {"lanes": -1})["lanes"]:
+            largest[k] = r
+    out = dict(draws_per_pass=len(rows), differing=differing,
+               pass_ms=sum(r["ms"] for r in rows),
+               pass_plain_ms=sum(r["plain_ms"] for r in rows),
+               pass_bound_ms=sum(r["bound_ms"] for r in rows),
+               largest={k: {f: r[f] for f in ("lanes", "ms", "plain_ms", "bound_ms")}
+                        for k, r in sorted(largest.items())})
+    line("sobol_draws_512_pass", **out)
+    check(differing == 0, f"{differing} Sobol draws of a 512^2 pass differ "
+          "from their plain versions")
     return out
 
 
@@ -2438,14 +2519,16 @@ def main():
     from pbrt_v3_iile_tpu_torch.ops import intersect_kernel as K2
     from pbrt_v3_iile_tpu_torch.ops import kd_kernel as K3
     from pbrt_v3_iile_tpu_torch.ops import kdtree
+    from pbrt_v3_iile_tpu_torch.ops import samplers as smplr
     from pbrt_v3_iile_tpu_torch.ops import sampling as smp
+    from pbrt_v3_iile_tpu_torch.ops import sobol_kernel as SK
     from pbrt_v3_iile_tpu_torch.ops import threefry
     from pbrt_v3_iile_tpu_torch.utils import vecmath as vm
 
     # ---- 2. build the kernels ----
     t0 = time.time()
     sources = ("bvh_traverse", "cluster_traverse", "kd_traverse",
-               "photon_gather")
+               "photon_gather", "sobol_draw")
     with ThreadPoolExecutor(len(sources)) as ex:   # one nvcc per source, together
         list(ex.map(lambda n: _build.load(n, verbose=True), sources))
     line("build", seconds=time.time() - t0, dir=_build.BUILD_DIR)
@@ -2629,6 +2712,7 @@ def main():
     sd128.film.x_resolution = sd128.film.y_resolution = 128
     K1.LAUNCHES = 0
     K2.LAUNCHES = 0
+    SK.LAUNCHES = 0
     cllib.CALLS = 0
     t0 = time.time()
     for compact in (False, True):
@@ -2640,30 +2724,36 @@ def main():
                                cluster_maxc=8)
     check(np.isfinite(img8).all() and img8.mean() > 0, "maxc=8 pass image")
     torch.cuda.synchronize()
-    launches = {"cluster_traverse": K1.LAUNCHES, "bvh_traverse": K2.LAUNCHES}
+    launches = {"cluster_traverse": K1.LAUNCHES, "bvh_traverse": K2.LAUNCHES,
+                "sobol_draw": SK.LAUNCHES}
     cull_calls = cllib.CALLS
     line("main_path", seconds=time.time() - t0, launches=launches,
          per_ray_cull_calls=cull_calls)
     check(launches["cluster_traverse"] > 0, "K1 never launched on the main path")
     check(launches["bvh_traverse"] > 0, "K2 never launched on the main path")
+    check(launches["sobol_draw"] > 0,
+          "the Sobol draw kernel never launched on the main path")
     check(cull_calls == 0, f"the main path called the torch cull {cull_calls} times")
 
     # the bvh accel's path: K2 carries every traversal
     K1.LAUNCHES = 0
     K2.LAUNCHES = 0
+    SK.LAUNCHES = 0
     cllib.CALLS = 0
     t0 = time.time()
     img, st = renderlib.render(sd128, spp=64, seed=3, compact=True, device=dev,
                                accel="bvh")
     torch.cuda.synchronize()
     launches_bvh = {"cluster_traverse": K1.LAUNCHES,
-                    "bvh_traverse": K2.LAUNCHES}
+                    "bvh_traverse": K2.LAUNCHES, "sobol_draw": SK.LAUNCHES}
     oracle_check("render128_compact_bvh", img)
     line("render128_compact_bvh_stats", **st)
     line("main_path_bvh", seconds=time.time() - t0, launches=launches_bvh,
          per_ray_cull_calls=cllib.CALLS)
     check(launches_bvh["bvh_traverse"] > 0, "K2 never launched on the bvh path")
     check(launches_bvh["cluster_traverse"] == 0, "K1 launched on the bvh path")
+    check(launches_bvh["sobol_draw"] > 0,
+          "the Sobol draw kernel never launched on the bvh path")
     check(cllib.CALLS == 0, "the bvh path called the torch cull")
 
     # ---- 7. IILE ----
@@ -2706,10 +2796,11 @@ def main():
 
     # the pass with each accel, in turns
     n_pass = 4
-    res = {a: dict(times=[], rays=[], checksums=[], k1=0, k2=0) for a in runs}
+    res = {a: dict(times=[], rays=[], checksums=[], k1=0, k2=0, sd=0)
+           for a in runs}
     for p in range(1, n_pass + 1):
         for accel, run in runs.items():
-            a1, a2 = K1.LAUNCHES, K2.LAUNCHES
+            a1, a2, a3 = K1.LAUNCHES, K2.LAUNCHES, SK.LAUNCHES
             torch.cuda.synchronize()
             t0 = time.time()
             L, _, aux = run(scene, cam, key, p)
@@ -2720,9 +2811,11 @@ def main():
             r["checksums"].append(checksum)
             r["k1"] += K1.LAUNCHES - a1
             r["k2"] += K2.LAUNCHES - a2
+            r["sd"] += SK.LAUNCHES - a3
             check(np.isfinite(checksum), f"non-finite 512^2 {accel} pass")
     per_pass = {a: {"cluster_traverse": r["k1"] / n_pass,
-                    "bvh_traverse": r["k2"] / n_pass} for a, r in res.items()}
+                    "bvh_traverse": r["k2"] / n_pass,
+                    "sobol_draw": r["sd"] / n_pass} for a, r in res.items()}
     for accel, r in res.items():
         mrays = [n / t / 1e6 for n, t in zip(r["rays"], r["times"])]
         line(f"atrium512_depth5_compact_{accel}", pass_seconds=r["times"],
@@ -2732,10 +2825,12 @@ def main():
              power=smi)
     check(per_pass["bvh"]["cluster_traverse"] == 0, "K1 launched in a bvh pass")
     check(per_pass["bvh"]["bvh_traverse"] > 0, "K2 never launched in a bvh pass")
+    check(all(p["sobol_draw"] > 0 for p in per_pass.values()),
+          "the Sobol draw kernel never launched in a 512^2 pass")
 
     os_, ds_, ts_ = sorted_waves["bounce"]
     o, d, tm = waves["bounce"]
-    l1, l2 = K1.LAUNCHES, K2.LAUNCHES
+    l1, l2, l3 = K1.LAUNCHES, K2.LAUNCHES, SK.LAUNCHES
     ms = {
         "cluster_traverse": cuda_ms(lambda: K1.cluster_traverse_cuda(
             cp, os_, ds_, ts_, maxc), 20),
@@ -2807,7 +2902,9 @@ def main():
                 for w in recorded]
     line("K2_per_wave_bvh_pass", waves=per_wave,
          sum_ms=sum(w["ms"] for w in per_wave), power=smi)
+    sobol = sobol_draw_timing(runs["clusters"], scene, cam, key, SK, smplr)
     K1.LAUNCHES, K2.LAUNCHES = l1, l2  # timing launches are not main-path ones
+    SK.LAUNCHES = l3
 
     kernels = [
         dict(name="cluster_traverse", route="cuda",
@@ -2881,6 +2978,28 @@ def main():
              launches_per_pass_kdtree512=cams["per_pass"]["atrium_kdtree"][
                  "kd_traverse"]),
         k4,
+        dict(name="sobol_draw", route="cuda",
+             source="pbrt_v3_iile_tpu_torch/csrc/sobol_draw.cu",
+             replaces="pbrt_v3_iile_tpu/ops/samplers.py:173",
+             replaces_note=("ctx_uniform's Owen-scrambled Sobol02 draws and "
+                            "pixel_samples' sobol kinds (:53): XLA-fused "
+                            "elementwise ops, no pallas_call"),
+             launches=launches["sobol_draw"], max_abs_err=0.0,
+             ms=sobol["pass_ms"], plain_ms=sobol["pass_plain_ms"],
+             bound_ms=sobol["pass_bound_ms"], bound_by="bytes", library_ms=None,
+             ms_note="the sum over the draws of one 512^2 clusters pass",
+             draws=sobol["largest"],
+             launches_per_pass=per_pass["clusters"]["sobol_draw"],
+             launches_per_pass_bvh=per_pass["bvh"]["sobol_draw"],
+             launches_bvh_path=launches_bvh["sobol_draw"],
+             launches_iile=iile["clusters"]["sobol_draw"],
+             **{f"launches_per_pass_{k}": v["sobol_draw"]
+                for k, v in scenes_pp.items()},
+             **{f"launches_per_pass_transport512_{k}": v["sobol_draw"]
+                for k, v in transport["per_pass"].items()},
+             launches_sharded_pass512_n1=shard["pass_clusters_n1"]["sobol_draw"],
+             launches_sharded_pass512_n4=shard["pass_clusters_n4"]["sobol_draw"],
+             launches_iile128_sharded=shard["iile"]["sobol_draw"]),
     ]
     line("timing_phase", wall_seconds=time.time() - t_timing)
     line("total", wall_seconds=time.time() - t_start)

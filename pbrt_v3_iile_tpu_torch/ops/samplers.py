@@ -8,7 +8,9 @@ radical inverses of the pass index.  The pass index is one host value
 per wavefront, so the radical inverses and MaxMinDist points are
 computed once on the host and broadcast.  There is no global generator
 state: keys are passed down explicitly, and both streams reproduce the
-reference's bits.
+reference's bits.  The Sobol draws of CUDA tensors are one launch each
+of ``ops/sobol_kernel.py``; CPU tensors take their plain versions
+(``owen_draw_plain``, ``sobol_pixel_samples_plain``), with the same bits.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from ..utils import stats as statslib
 from . import lds
+from . import sobol_kernel
 from . import threefry
 
 DIM_PIXEL_JITTER = 0
@@ -72,11 +75,9 @@ def pixel_samples(kind: str, key, pixel_idx, pass_idx: int, spp: int):
         strata = max(1, int(spp ** 0.5))
         return stratified_pixel_jitter(key, n, pass_idx, strata, device=dev)
     if kind in _SOBOL_KINDS:
-        i = torch.full((n,), pass_idx, dtype=torch.int64, device=dev)
-        sx = lds.hash_u32(pixel_idx)
-        sy = lds.hash_u32(lds.u32(pixel_idx) ^ 0x85EBCA77)
-        x, y = lds.sobol02(i, sx, sy)
-        return torch.stack([x, y], dim=-1)
+        if pixel_idx.is_cuda:
+            return sobol_kernel.xor_pair_cuda(pixel_idx, pass_idx)
+        return sobol_pixel_samples_plain(pixel_idx, pass_idx)
     if kind in ("halton", "halton-global"):
         # radical inverses in bases 2 and 3 of the pass index (one host
         # value for the wave), each pixel rotated by its own hash
@@ -92,6 +93,16 @@ def pixel_samples(kind: str, key, pixel_idx, pass_idx: int, spp: int):
         x, y = lds.maxmin02_shared(pass_idx, max(int(spp), 2), sx, sy)
         return torch.stack([x, y], dim=-1)
     return uniform(key, (n, 2), dev)
+
+
+def sobol_pixel_samples_plain(pixel_idx, pass_idx: int):
+    """``pixel_samples``' sobol kinds as int64 PyTorch ops: (N, 2)."""
+    i = torch.full((pixel_idx.shape[0],), pass_idx, dtype=torch.int64,
+                   device=pixel_idx.device)
+    sx = lds.hash_u32(pixel_idx)
+    sy = lds.hash_u32(lds.u32(pixel_idx) ^ 0x85EBCA77)
+    x, y = lds.sobol02(i, sx, sy)
+    return torch.stack([x, y], dim=-1)
 
 
 @dataclass
@@ -128,30 +139,49 @@ def _dim_seed(ctx: SampleCtx, bounce: int, purpose: int, k: int):
     return lds.hash_u32(ctx.pixel ^ lds.mul32(code, 0x9E3779B9) ^ ctx.salt)
 
 
+def _columns(cols, shape):
+    return cols[0] if len(shape) == 1 else torch.stack(cols[:shape[1]], dim=-1)
+
+
+def owen_draw_plain(ctx: SampleCtx, bounce: int, purpose: int, shape):
+    """``ctx_uniform``'s draw on a SampleCtx as int64 PyTorch ops: padded
+    Owen-scrambled Sobol02 pairs."""
+    k = 1 if len(shape) == 1 else shape[1]
+    cols = []
+    for pair in range((k + 1) // 2):
+        sx = _dim_seed(ctx, bounce, purpose, 2 * pair)
+        sy = _dim_seed(ctx, bounce, purpose, 2 * pair + 1)
+        x, y = lds.sobol02_owen_shared(ctx.index, sx, sy)
+        cols.extend([x, y])
+    return _columns(cols, shape)
+
+
 def ctx_uniform(ctx, key, bounce: int, purpose: int, shape, device=None):
     """Uniform samples for one integration decision.
 
     ctx None -> threefry stream ``wave_key(key, 0, bounce, purpose)``;
     a HaltonCtx -> permuted radical inverses rotated per pixel;
-    another ctx -> padded Owen-scrambled Sobol02 pairs.  shape: (N,) or (N, k)
-    with k <= 4.  Each call is a ``samples/draw`` span."""
+    another ctx -> padded Owen-scrambled Sobol02 pairs, one launch of
+    ``sobol_kernel`` for a CUDA ``ctx.pixel`` (counted, with the tracer
+    on, under ``samples/kernel_draws``, the plain version's under
+    ``samples/plain_draws``).  shape: (N,) or (N, k) with k <= 4.  Each
+    call is a ``samples/draw`` span."""
     with statslib.stage("samples/draw"):
         if ctx is None:
             return uniform(wave_key(key, 0, bounce, purpose), shape, device)
-        k = 1 if len(shape) == 1 else shape[1]
-        cols = []
         if isinstance(ctx, HaltonCtx):
-            for kk in range(k):
+            cols = []
+            for kk in range(1 if len(shape) == 1 else shape[1]):
                 code = (bounce * 64 + purpose * 4 + kk) & lds.M32
                 x1 = float(lds.scrambled_radical_inverse_dyn(2 + code, ctx.index))
                 rot = lds.to_unit_float(_dim_seed(ctx, bounce, purpose, kk))
                 cols.append(torch.remainder(x1 + rot, 1.0))
-        else:
-            for pair in range((k + 1) // 2):
-                sx = _dim_seed(ctx, bounce, purpose, 2 * pair)
-                sy = _dim_seed(ctx, bounce, purpose, 2 * pair + 1)
-                x, y = lds.sobol02_owen_shared(ctx.index, sx, sy)
-                cols.extend([x, y])
-        if len(shape) == 1:
-            return cols[0]
-        return torch.stack(cols[:k], dim=-1)
+            return _columns(cols, shape)
+        on_card = ctx.pixel.is_cuda
+        if statslib.enabled():
+            statslib.add_counter("samples/kernel_draws", on_card)
+            statslib.add_counter("samples/plain_draws", not on_card)
+        if on_card:
+            return sobol_kernel.owen_draw_cuda(ctx.pixel, ctx.index, ctx.salt,
+                                               bounce, purpose, shape)
+        return owen_draw_plain(ctx, bounce, purpose, shape)

@@ -18,7 +18,8 @@ motion variant, and a soup whose static and moving triangles are split
 from its sub-keyframes by build_motion_split_np; on atrium given as two
 equal keyframes it equals the static kernel).  The photon
 gather's range query (K4) against photon_query_plain: the pair list, M
-and dropped identical.  GPU
+and dropped identical.  The Sobol draw kernel against the samplers' plain
+versions: every bit of every draw and pixel sample.  GPU
 renders against the CPU render: test_golden's criterion.  The train step on
 the card against the CPU step: see its docstring.
 """
@@ -615,3 +616,108 @@ def test_photon_gather_kernel_matches_plain():
     assert got[0].shape == (0,)
     for name, a, b in zip(names, got, want):
         assert torch.equal(a, b), name
+
+
+# The Sobol draws (csrc/sobol_draw.cu): indices at the u32 edges and a few
+# others, salts likewise, pixel ids over all of u32 (0 and 2^32 - 1 first).
+SOBOL_INDICES = (0, 1, 2 ** 31, 2 ** 32 - 1, 7, 1000, 0x5A5A5A5A, 2 ** 31 - 1)
+SOBOL_SALTS = (0, 0x7FFFFFFE, 0x12345678, 0xFFFFFFFF)
+SOBOL_KINDS = ("sobol", "lowdiscrepancy", "02sequence", "zerotwosequence")
+
+
+@pytest.fixture(scope="module")
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _sobol_pixels(n, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    pix = np.concatenate([[0, 2 ** 32 - 1, 1, 2 ** 31],
+                          rng.integers(0, 2 ** 32, max(n - 4, 0))])[:n]
+    return torch.as_tensor(pix.astype(np.int64), device=dev)
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 1_000_003, 2_073_600])
+def test_sobol_draw_kernel_matches_plain(cuda_device, n):
+    """ctx_uniform on a CUDA SampleCtx launches the kernel once and equals
+    owen_draw_plain on the card bit for bit: shape (N,) and k = 1-4, every
+    purpose, bounces 0-5; every index at N <= 31, the indices cycled at
+    larger N."""
+    from pbrt_v3_iile_tpu_torch.ops import samplers as smplr
+    from pbrt_v3_iile_tpu_torch.ops import sobol_kernel
+
+    pix = _sobol_pixels(n, cuda_device, seed=n)
+    purposes = sorted(v for k, v in vars(smplr).items() if k.startswith("DIM_"))
+    combos = [(p, b, k) for p in purposes for b in range(6) for k in (None, 1, 2, 3, 4)]
+    for j, (purpose, bounce, k) in enumerate(combos):
+        indices = SOBOL_INDICES if n <= 31 else SOBOL_INDICES[j % len(SOBOL_INDICES):][:1]
+        for index in indices:
+            ctx = smplr.SampleCtx(pixel=pix, index=index,
+                                  salt=SOBOL_SALTS[j % len(SOBOL_SALTS)])
+            shape = (n,) if k is None else (n, k)
+            l0 = sobol_kernel.LAUNCHES
+            got = smplr.ctx_uniform(ctx, None, bounce, purpose, shape)
+            assert sobol_kernel.LAUNCHES == l0 + 1
+            want = smplr.owen_draw_plain(ctx, bounce, purpose, shape)
+            assert _same_bits(got, want), (purpose, bounce, k, index)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", SOBOL_KINDS)
+def test_sobol_pixel_samples_kernel_matches_plain(cuda_device, kind):
+    """pixel_samples' sobol kinds on CUDA pixel ids: one launch of the
+    kernel's XOR mode, equal to sobol_pixel_samples_plain bit for bit."""
+    from pbrt_v3_iile_tpu_torch.ops import samplers as smplr
+    from pbrt_v3_iile_tpu_torch.ops import sobol_kernel
+
+    for n in (1, 31, 1_000_003, 2_073_600):
+        pix = _sobol_pixels(n, cuda_device, seed=n + 1)
+        for pass_idx in SOBOL_INDICES:
+            l0 = sobol_kernel.LAUNCHES
+            got = smplr.pixel_samples(kind, None, pix, pass_idx, 16)
+            assert sobol_kernel.LAUNCHES == l0 + 1
+            want = smplr.sobol_pixel_samples_plain(pix, pass_idx)
+            assert _same_bits(got, want), (n, pass_idx)
+
+
+@pytest.mark.cuda
+def test_sobol_draw_kernel_refuses_bad_pixels(cuda_device):
+    """A non-contiguous, 2-D or non-int64 pixel tensor raises before the
+    launch."""
+    from pbrt_v3_iile_tpu_torch.ops import sobol_kernel
+
+    pix = _sobol_pixels(64, cuda_device)
+    calls = (lambda p: sobol_kernel.owen_draw_cuda(p, 3, 5, 0, 4, (p.shape[0], 2)),
+             lambda p: sobol_kernel.xor_pair_cuda(p, 3))
+    for call in calls:
+        with pytest.raises(ValueError, match="contiguous"):
+            call(pix[::2])
+        with pytest.raises(ValueError, match="shape"):
+            call(pix.reshape(32, 2))
+        with pytest.raises(TypeError):
+            call(pix.to(torch.int32))
+
+
+@pytest.mark.cuda
+def test_sobol_draw_counts_kernel_draws(cuda_device):
+    """With the tracer on a CUDA draw counts under samples/kernel_draws."""
+    from pbrt_v3_iile_tpu_torch.ops import samplers as smplr
+    from pbrt_v3_iile_tpu_torch.utils import stats as statslib
+
+    ctx = smplr.SampleCtx(pixel=_sobol_pixels(31, cuda_device), index=3, salt=5)
+    statslib.reset()
+    statslib.enable(True)
+    try:
+        smplr.ctx_uniform(ctx, None, 0, smplr.DIM_BSDF_DIR, (31, 2))
+        assert statslib.counters() == {"samples/kernel_draws": 1,
+                                       "samples/plain_draws": 0}
+    finally:
+        statslib.enable(False)
+        statslib.reset()

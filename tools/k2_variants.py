@@ -39,7 +39,6 @@ import json
 import os
 import subprocess
 import sys
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -47,9 +46,9 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+from _timing import events_ms  # noqa: E402  (tools/_timing.py)
 CSRC = os.path.join(REPO, "pbrt_v3_iile_tpu_torch", "csrc")
 OUT = os.path.join(REPO, "build", "k2_variants")
-REPS = 20
 
 
 def _top(n):
@@ -154,25 +153,6 @@ def bounce_wave(dev):
     o_b = vm.offset_ray_origin(it.p, ng, d_b)
     tm_b = torch.where(hp.valid, 1e30, -1.0)
     return scene, (o_b.contiguous(), d_b.contiguous(), tm_b.contiguous())
-
-
-def events_ms(fn, queued):
-    """Mean ms per call of fn() over REPS calls by CUDA events, and the
-    host's us per call; queued: behind a device sleep."""
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    if queued:
-        torch.cuda._sleep(100_000_000)  # ~50 ms at the H100's clock
-    a.record()
-    h0 = time.perf_counter()
-    for _ in range(REPS):
-        fn()
-    host_us = (time.perf_counter() - h0) / REPS * 1e6
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / REPS, host_us
 
 
 def main():
