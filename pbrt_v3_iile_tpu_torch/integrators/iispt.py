@@ -16,6 +16,15 @@ path integrator with direct_only and nee_all, and the two are summed
 (iisptfilmmonitor.cpp).
 
 Everything runs eagerly on the caller's device; there are no caches.
+
+With the tracer on (``utils/stats.py``), ``iile/task`` spans each task
+around ``iile/probes`` (the probes' specular chase and G-buffer trace),
+``iile/cnn``, and ``iile/chase`` and ``iile/mis`` of each pixel chunk;
+``iile/direct`` spans each direct pass and ``iile/merge`` each task's
+scatter into the film and the final resolve.  The counters ``iile/tasks``,
+``iile/probes``, ``iile/cnn_probes``, ``iile/probe_rays``,
+``iile/pixel_chunks``, ``iile/chase_steps`` and ``iile/mis_slots`` are
+host integers counted from the shapes, without a sync.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from ..ops import film as filmlib
 from ..ops import samplers as smplr
 from ..ops import sampling as smp
 from ..ops import threefry
+from ..utils import stats as statslib
 from ..utils import vecmath as vm
 from . import path as pathlib_
 from . import probes as probelib
@@ -106,23 +116,12 @@ def probe_radiance(net, gb: probelib.ProbeGBuffer, probe_valid):
 # per-pixel hemisphere MIS
 # ---------------------------------------------------------------------------
 
-def _mis_stage(scene, cam, R, probe_valid, cam_look, cam_orig, right, up,
-               look, coords_f, n_ids, fx, fy, in_img, ff_found, ff_beta,
-               ff_p, ff_n, ff_wo, ff_mat, ff_uv, key, ts: int, hemi_size: int):
-    """Hemisphere MIS for a chunk of Np pixels over their 4 neighbour
-    probes, 16 attempts each: slots of shape (Np, 4, 16).  Returns (rgb
-    (Np,3), valid (Np,))."""
-    Np = fx.shape[0]
-    S = HEMISPHERIC_IMPORTANCE_SAMPLES
-    dev = fx.device
-    px_valid = in_img & ff_found & (vm.luminance(ff_beta) > 0.0)
-
-    n_px = coords_f[n_ids]                          # (Np, 4, 2)
-    cam_valid_n = probe_valid[n_ids]                # (Np, 4)
-    cam_look_n = cam_look[n_ids]                    # (Np, 4, 3)
-    cam_orig_n = cam_orig[n_ids]
-
-    # ---- neighbour weights (compute_fpixel_weights :961-1037) ----
+def neighbour_weights(cam, n_px, cam_valid_n, cam_look_n, cam_orig_n, fx, fy,
+                      ff_p, ff_n, ts: int):
+    """Each pixel's selection probabilities of its 4 neighbour probes (Np,
+    4) (compute_fpixel_weights :961-1037): n_px (Np,4,2) the probes'
+    pixels, cam_valid_n, cam_look_n, cam_orig_n their validity, look and
+    origin; fx, fy the pixels; ff_p, ff_n their first diffuse hit."""
     fpix = torch.stack([fx, fy], dim=-1).to(torch.float32)[:, None, :]
     pdist = torch.sqrt(torch.sum((fpix - n_px) ** 2, dim=-1))
     wdpos = torch.clamp(pdist / float(ts), 0.0, 1.0)
@@ -139,8 +138,28 @@ def _mis_stage(scene, cam, R, probe_valid, cam_look, cam_orig, right, up,
                       torch.clamp(1.0 - rel_err, 0.0, 1.0), zero)
     wod = wdpos * wdnor + wdpos * wdd + wdpos
     w_raw = torch.clamp(2.0 - wod, min=0.0) + 0.001
-    w_prob = w_raw / torch.clamp(torch.sum(w_raw, dim=-1, keepdim=True),
-                                 min=1e-12)
+    return w_raw / torch.clamp(torch.sum(w_raw, dim=-1, keepdim=True),
+                               min=1e-12)
+
+
+def _mis_stage(scene, cam, R, probe_valid, cam_look, cam_orig, right, up,
+               look, coords_f, n_ids, fx, fy, in_img, ff_found, ff_beta,
+               ff_p, ff_n, ff_wo, ff_mat, ff_uv, key, ts: int, hemi_size: int):
+    """Hemisphere MIS for a chunk of Np pixels over their 4 neighbour
+    probes, 16 attempts each: slots of shape (Np, 4, 16).  Returns (rgb
+    (Np,3), valid (Np,))."""
+    Np = fx.shape[0]
+    S = HEMISPHERIC_IMPORTANCE_SAMPLES
+    dev = fx.device
+    px_valid = in_img & ff_found & (vm.luminance(ff_beta) > 0.0)
+
+    n_px = coords_f[n_ids]                          # (Np, 4, 2)
+    cam_valid_n = probe_valid[n_ids]                # (Np, 4)
+    cam_look_n = cam_look[n_ids]                    # (Np, 4, 3)
+    cam_orig_n = cam_orig[n_ids]
+
+    w_prob = neighbour_weights(cam, n_px, cam_valid_n, cam_look_n, cam_orig_n,
+                               fx, fy, ff_p, ff_n, ts)
 
     # ---- shading data, broadcast over the slots (views, no copies) ----
     params = bsdflib.gather_params(scene, torch.clamp(ff_mat, min=0), uv=ff_uv,
@@ -235,15 +254,20 @@ def run_task(scene, cam, sd, net, key, task, hemi_size: int = 32,
     ts = task.tilesize
     task_size = schedlib.NUMBER_TILES * ts
 
-    with span("probes"):
+    with span("probes"), statslib.stage("iile/probes"):
         coords = task_probe_coords(task.x0, task.y0, ts, W, H, dev)
         o, d = _probe_rays(cam, key, coords, cam_kind)
         fi = probelib.find_first_nonspecular(scene, o, d, key, accel=accel)
         probe_valid = fi["found"] & (vm.luminance(fi["beta"]) > 0.0)
         gb = probelib.render_probes(scene, fi["p"], fi["n"], key, hemi_size,
                                     accel=accel)
-    with span("cnn"):
+    with span("cnn"), statslib.stage("iile/cnn"):
         R = probe_radiance(net, gb, probe_valid)
+    if statslib.enabled():
+        P = coords.shape[0]
+        statslib.add_counter("iile/probes", P)
+        statslib.add_counter("iile/cnn_probes", P)
+        statslib.add_counter("iile/probe_rays", P * hemi_size * hemi_size)
 
     coords_f = coords.to(torch.float32)
     x1 = min(task.x0 + task_size, W)
@@ -254,7 +278,12 @@ def run_task(scene, cam, sd, net, key, task, hemi_size: int = 32,
     chunk = next(c for c in CHUNK_LADDER if c >= min(npix, PIXEL_CHUNK))
     idx_all, rgb_all, val_all = [], [], []
     for c0 in range(0, npix, chunk):
-        with span("chase"):
+        if statslib.enabled():
+            statslib.add_counter("iile/pixel_chunks", 1)
+            statslib.add_counter("iile/chase_steps", probelib.MAX_CHASE)
+            statslib.add_counter("iile/mis_slots",
+                                 chunk * 4 * HEMISPHERIC_IMPORTANCE_SAMPLES)
+        with span("chase"), statslib.stage("iile/chase"):
             li = torch.arange(c0, c0 + chunk, device=dev)
             lx = li % wx
             ly = torch.clamp(li // wx, max=wy - 1)
@@ -265,7 +294,7 @@ def run_task(scene, cam, sd, net, key, task, hemi_size: int = 32,
                                  cam_kind)
             ff = probelib.find_first_nonspecular(
                 scene, fo, fd, threefry.fold_in(key, 8 + c0), accel=accel)
-        with span("mis"):
+        with span("mis"), statslib.stage("iile/mis"):
             gi = torch.clamp(lx // ts, 0, G - 2)
             gj = torch.clamp(ly // ts, 0, G - 2)
             n_ids = torch.stack([gj * G + gi,             # S (ref ordering,
@@ -320,11 +349,15 @@ def direct_passes(sd, scene, cam, dkey, direct_samples: int, accel: str,
     run = renderlib.render_pass_fn(sd, dcfg, device)
     film = filmlib.new_film(H, W, device)
     for p in range(direct_samples):
-        L, jitter, _ = run(scene, cam, dkey, p)
-        film = filmlib.add_sample_image(film, L, jitter)
+        with statslib.stage("iile/direct"):
+            L, jitter, _ = run(scene, cam, dkey, p)
+            film = filmlib.add_sample_image(film, L, jitter)
         if report is not None:
             report("direct", p + 1, direct_samples)
-    return filmlib.resolve(film).cpu().numpy()
+    with statslib.stage("iile/merge"):
+        img = filmlib.resolve(film)
+        with statslib.sync_point("iile_direct_image"):
+            return img.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -334,7 +367,7 @@ def direct_passes(sd, scene, cam, dkey, direct_samples: int, accel: str,
 def render_iile(sd, weights: str = None, net=None, seed: int = 0,
                 indirect_tasks: int = 16, direct_samples: int = 16,
                 hemi_size: int = 32, report=None, accel: str = None,
-                device="cuda", span=_no_span):
+                device="cuda", span=_no_span, prebuilt=None):
     """IILE render of a scene description (iispt.cpp render_normal_2) on
     ``device`` (the card unless the caller asks for the CPU).
 
@@ -346,8 +379,11 @@ def render_iile(sd, weights: str = None, net=None, seed: int = 0,
     ``clusters`` on CUDA, ``bvh`` on the CPU, as ``make_integrator_config``
     resolves it.  report(phase, done,
     total) is called after each indirect task and direct pass; span is
-    passed to ``run_task``.  Returns (combined, direct, indirect) (H,W,3)
-    numpy images and a stats dict."""
+    passed to ``run_task``.  prebuilt: (scene, cam) of
+    ``render.build(sd, device, ...)`` with what the resolved accel needs,
+    to render without building them again (the same images as a call
+    that builds them); a scene without it raises.  Returns (combined,
+    direct, indirect) (H,W,3) numpy images and a stats dict."""
     device = torch.device(device)
     accel = renderlib.resolve_accel(sd, accel, device)
     if net is None:
@@ -356,8 +392,7 @@ def render_iile(sd, weights: str = None, net=None, seed: int = 0,
         net = weightlib.iisptnet_from_flax(net).to(device)
     else:
         net = net.eval().to(device)
-    scene, cam = renderlib.build(sd, device, with_clusters=accel == "clusters",
-                                 with_kdtree=accel == "kdtree")
+    scene, cam = renderlib.scene_and_camera(sd, accel, device, prebuilt)
     W, H = sd.film.x_resolution, sd.film.y_resolution
     key = threefry.prng_key(seed)
 
@@ -368,14 +403,21 @@ def render_iile(sd, weights: str = None, net=None, seed: int = 0,
     ind_cnt = torch.zeros((W * H + 1,), dtype=torch.float32, device=device)
     for task in tasks:
         tkey = threefry.fold_in(key, 1000 + task.task_number)
-        idx, rgb, valid = run_task(scene, cam, sd, net, tkey, task,
-                                   hemi_size=hemi_size, accel=accel, span=span)
-        ind_rgb.index_add_(0, idx, rgb)
-        ind_cnt.index_add_(0, idx, valid.to(torch.float32))
+        if statslib.enabled():
+            statslib.add_counter("iile/tasks", 1)
+        with statslib.stage("iile/task"):
+            idx, rgb, valid = run_task(scene, cam, sd, net, tkey, task,
+                                       hemi_size=hemi_size, accel=accel, span=span)
+        with statslib.stage("iile/merge"):
+            ind_rgb.index_add_(0, idx, rgb)
+            ind_cnt.index_add_(0, idx, valid.to(torch.float32))
         if report is not None:
             report("indirect", task.task_number + 1, indirect_tasks)
-    ind_img = (ind_rgb[:W * H] / torch.clamp(ind_cnt[:W * H, None], min=1.0)
-               ).reshape(H, W, 3).cpu().numpy()
+    with statslib.stage("iile/merge"):
+        ind_img = (ind_rgb[:W * H] / torch.clamp(ind_cnt[:W * H, None], min=1.0)
+                   ).reshape(H, W, 3)
+        with statslib.sync_point("iile_indirect_image"):
+            ind_img = ind_img.cpu().numpy()
     t_ind = time.time() - t0
 
     # ---------- direct: progressive 1-spp passes ----------

@@ -116,6 +116,22 @@ def build(sd, device, with_clusters: bool = None, with_kdtree: bool = None):
     return scene, cam
 
 
+def scene_and_camera(sd, accel: str, device, prebuilt=None):
+    """prebuilt (scene, cam) of ``build`` when given, checked to hold what
+    ``accel`` needs (the cluster pack, the kd-tree); else built for it."""
+    if prebuilt is None:
+        return build(sd, device, with_clusters=accel == "clusters",
+                     with_kdtree=accel == "kdtree")
+    scene, cam = prebuilt
+    if accel == "clusters" and scene.clusters is None:
+        raise ValueError("accel 'clusters': the prebuilt scene has no "
+                         "cluster pack (build(..., with_clusters=True))")
+    if accel == "kdtree" and not scene.has_kdtree:
+        raise ValueError("accel 'kdtree': the prebuilt scene has no "
+                         "kd-tree (build(..., with_kdtree=True))")
+    return scene, cam
+
+
 def make_wave_prep(sd, device, chunk_rows: int = 0):
     """Camera-wave generator f(cam, key, pass_idx, row0) -> (o, d, w,
     jitter, k, ctx, ray_time) for rows [row0, row0 + CH): w is the
@@ -259,17 +275,7 @@ def render(sd, spp: int = None, seed: int = 0, max_wave: int = 1 << 16,
         cfg = cfg.replace(compact_schedule=COMPACT_SCHEDULE)
     if cluster_maxc is not None:
         cfg = cfg.replace(cluster_maxc=cluster_maxc)
-    if prebuilt is None:
-        scene, cam = build(sd, device, with_clusters=cfg.accel == "clusters",
-                           with_kdtree=cfg.accel == "kdtree")
-    else:
-        scene, cam = prebuilt
-        if cfg.accel == "clusters" and scene.clusters is None:
-            raise ValueError("accel 'clusters': the prebuilt scene has no "
-                             "cluster pack (build(..., with_clusters=True))")
-        if cfg.accel == "kdtree" and not scene.has_kdtree:
-            raise ValueError("accel 'kdtree': the prebuilt scene has no "
-                             "kd-tree (build(..., with_kdtree=True))")
+    scene, cam = scene_and_camera(sd, cfg.accel, device, prebuilt)
     H, W = sd.film.y_resolution, sd.film.x_resolution
     spp = spp if spp is not None else sd.sampler.pixel_samples
     chunk_rows = 0

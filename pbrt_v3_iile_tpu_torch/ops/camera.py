@@ -18,6 +18,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils import stats as statslib
 from ..utils import transforms as xf
 from ..utils import vecmath as vm
 from . import sampling as smp
@@ -462,8 +463,10 @@ def hemi_frames(pos, normal):
     normal is the z axis, then +y."""
     d = vm.normalize(normal)
     pole = (torch.abs(d[..., 0]) < 1e-9) & (torch.abs(d[..., 1]) < 1e-9)
-    y_up = torch.tensor([0.0, 1.0, 0.0], dtype=d.dtype, device=d.device)
-    z_up = torch.tensor([0.0, 0.0, 1.0], dtype=d.dtype, device=d.device)
+    # copies from pageable host memory: on the card the host waits for them
+    with statslib.sync_point("hemi_up_hints"):
+        y_up = torch.tensor([0.0, 1.0, 0.0], dtype=d.dtype, device=d.device)
+        z_up = torch.tensor([0.0, 0.0, 1.0], dtype=d.dtype, device=d.device)
     up = torch.where(pole[..., None], y_up, z_up).expand(d.shape)
     right = vm.normalize(vm.cross(up, d))
     return right, vm.cross(d, right), d

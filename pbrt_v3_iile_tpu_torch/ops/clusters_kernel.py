@@ -352,8 +352,10 @@ def intersect_clusters_fused(cp, o, d, t_max, *, any_hit: bool = False,
     pad = (-N) % G
     if pad:
         o = torch.cat([o, torch.zeros((pad, 3), dtype=o.dtype, device=dev)])
-        d = torch.cat([d, torch.tensor([[1.0, 0.0, 0.0]], dtype=d.dtype,
-                                       device=dev).expand(pad, 3)])
+        # a copy from pageable host memory: on the card the host waits for it
+        with statslib.sync_point("k1_pad_direction"):
+            d_pad = torch.tensor([[1.0, 0.0, 0.0]], dtype=d.dtype, device=dev)
+        d = torch.cat([d, d_pad.expand(pad, 3)])
         t_max = torch.cat([t_max, torch.full((pad,), -1.0, dtype=t_max.dtype,
                                              device=dev)])
     Np = N + pad
